@@ -1,0 +1,144 @@
+"""The port's CUDA kernel against its plain PyTorch version, on the card.
+
+Every test here carries the ``cuda`` marker and skips when
+``torch.cuda.is_available()`` is False (the decision is made inside a
+fixture, never at import).  The module imports torch and the port only, so
+it runs on a machine with the card and no JAX:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+Inputs are random no-UNKNOWN alignments from numpy seeds; tolerance on
+kept pairs rtol=1e-5, atol=1e-6 with equal ``keep`` and equal non-finite
+patterns (the kernel follows the plain version's operation order, so in
+practice they agree bit for bit).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from weightedld_tpu_torch.ops import cuda_ld as K
+from weightedld_tpu_torch.parallel.triangle import plan_tiles
+from weightedld_tpu_torch.runtime.driver import (DriverConfig, LdSession,
+                                                 plane_budget)
+
+RTOL, ATOL = 1e-5, 1e-6
+
+# id -> (seed, alphabet, n_seqs, n_sites, tile, seq_chunk, weight mode)
+CASES = {
+    "dna-int8x3": (1, (0, 1, 2, 3, 4), 150, 300, 48, 64, "int8x3"),
+    "snp-int8x3-main": (2, (0, 1, 4), 1000, 600, 256, 1024, "int8x3"),
+    "dna-unit": (3, (0, 1, 2, 3, 4), 150, 300, 48, 64, "unit"),
+    "snp-exact": (4, (0, 1, 4), 150, 300, 48, 64, "exact"),
+    "snp-split": (5, (0, 1, 4), 150, 300, 48, 64, "split_bf16"),
+    "snp-int8": (6, (0, 3, 4), 150, 300, 48, 64, "int8"),
+    "binary-ragged": (7, (0, 1), 37, 90, 32, 40, "unit"),
+    "multichunk": (8, (0, 1, 2, 3, 4), 333, 257, 64, 120, "int8x3"),
+}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _inputs(name: str, device):
+    seed, alphabet, n, s, tile, chunk, mode = CASES[name]
+    rng = np.random.default_rng(seed)
+    aln = rng.choice(alphabet, size=(n, s)).astype(np.int8)
+    if mode == "unit":
+        w = np.ones(n, np.float32)
+    elif mode == "exact":
+        w = ((np.arange(n) % 4 + 1) / 4.0).astype(np.float32)
+    else:
+        w = (rng.random(n) + 0.05).astype(np.float32)
+        w /= w.max()
+    nlev = {"int8": 2, "int8x3": 3}.get(mode, 0)
+    wr = K.pad_weights_int8(w, chunk, levels=nlev) if nlev \
+        else K.pad_weights(w, chunk)
+    plan = plan_tiles(s, tile)
+    emit = np.ones(plan.n_tiles, np.int32)
+    emit[rng.random(plan.n_tiles) < 0.2] = 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    arrays = dict(codes=t(K.pad_alignment_site_major(aln, tile, chunk)),
+                  weights=t(wr), auxc=t(K.majmin_site_aux(aln, plan.s_pad)[0]),
+                  tile_i=t(plan.tile_i), tile_j=t(plan.tile_j), emit=t(emit))
+    kw = dict(tile=tile, n_sites=s, seq_chunk=chunk,
+              unit_weights=mode == "unit", exact_weights=mode == "exact",
+              wquant=mode if nlev else "")
+    return arrays, kw, nlev
+
+
+def _assert_match(got: K.PairStats, ref: K.PairStats) -> None:
+    keep = ref.keep.cpu()
+    assert torch.equal(got.keep.cpu(), keep)
+    assert keep.any()
+    for f in ("d", "d_prime", "r2"):
+        g, r = getattr(got, f).cpu()[keep], getattr(ref, f).cpu()[keep]
+        fin = torch.isfinite(r)
+        assert torch.equal(torch.isfinite(g), fin), f
+        torch.testing.assert_close(g[fin], r[fin], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["codes", "pre"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_kernel_matches_plain_on_card(cuda_device, name, entry):
+    a, kw, nlev = _inputs(name, cuda_device)
+    args = (a["weights"], a["auxc"], a["tile_i"], a["tile_j"], a["emit"])
+    before = dict(K.launches)
+    if entry == "codes":
+        got = K.tile_stats_majmin(a["codes"], *args, **kw)
+        ref = K.tile_stats_majmin_plain(a["codes"], *args, **kw)
+        kernel = "ld_majmin_codes"
+    else:
+        planes = K.build_majmin_planes(a["codes"], a["auxc"], tile=kw["tile"])
+        xq = K.build_majmin_xq(planes, a["weights"], nlev) if nlev else None
+        got = K.tile_stats_majmin_pre(planes, xq, *args, **kw)
+        ref = K.tile_stats_majmin_pre_plain(planes, xq, *args, **kw)
+        kernel = "ld_majmin_planes"
+    torch.cuda.synchronize()
+    assert K.launches[kernel] == before[kernel] + 1
+    _assert_match(got, ref)
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_mixed_devices(cuda_device):
+    a, kw, _ = _inputs("dna-int8x3", cuda_device)
+    with pytest.raises(ValueError):
+        K.tile_stats_majmin(a["codes"], a["weights"].cpu(), a["auxc"],
+                            a["tile_i"], a["tile_j"], a["emit"], **kw)
+
+
+@pytest.mark.cuda
+def test_auto_preplaned_picks_planes_that_fit(cuda_device):
+    rng = np.random.default_rng(12)
+    aln = rng.choice((0, 1, 4), size=(300, 500)).astype(np.int8)
+    sess = LdSession(aln, (rng.random(300) + 0.05).astype(np.float32),
+                     np.arange(500), DriverConfig(tile=128),
+                     device=cuda_device)
+    assert sess.preplaned and sess.codes_dev is None
+    assert len(sess.operands) == 2 and plane_budget(cuda_device) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preplaned", ["off", "on"])
+def test_session_records_equal_on_cpu_and_card(cuda_device, preplaned):
+    rng = np.random.default_rng(11)
+    aln = rng.choice((0, 1, 4), p=(0.6, 0.3, 0.1),
+                     size=(200, 700)).astype(np.int8)
+    w = (rng.random(200) + 0.05).astype(np.float32)
+    sm = np.arange(700) * 3
+    cfg = DriverConfig(tile=128, seq_chunk=64, preplaned=preplaned)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        sess = LdSession(aln, w, sm, cfg, device=dev)
+        recs = [r for _b, r in sess.stream()]
+        runs[str(dev)] = [np.concatenate([getattr(r, f) for r in recs])
+                          for f in ("pos_a", "pos_b", "d", "d_prime", "r2")]
+    for a, b in zip(runs["cpu"], runs[str(cuda_device)]):
+        np.testing.assert_array_equal(a, b)

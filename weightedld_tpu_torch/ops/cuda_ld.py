@@ -1,0 +1,557 @@
+"""The factorized major/dominant-minor LD tile kernel: CUDA wrappers, plain
+PyTorch versions, and the host packers around them.
+
+Counterpart of the factorized half of ``weightedld_tpu/ops/pallas_ld.py``:
+
+* :func:`tile_stats_majmin` replaces ``pallas_tile_stats_majmin``
+  (``pallas_ld.py:975``, kernel ``_ld_kernel_mm`` ``:847``): operands built
+  from the site-major codes and the per-site aux;
+* :func:`tile_stats_majmin_pre` replaces ``pallas_tile_stats_majmin_pre``
+  (``:1219``, kernel ``_ld_kernel_mm_pre`` ``:1110``): operands read from
+  planes precomputed by :func:`build_majmin_planes` / :func:`build_majmin_xq`.
+
+Both launch the hand-written kernel of ``csrc/ld_majmin.cu`` for CUDA
+tensors and run :func:`tile_stats_majmin_plain` /
+:func:`tile_stats_majmin_pre_plain` for CPU tensors (the CPU tests and the
+``--device cpu`` CLI); any other device raises.  Each launch adds one to
+``launches[<kernel name>]``.
+
+Precondition (as in JAX): no UNKNOWN code anywhere, or every site's count
+margins absorb the worst-case per-pair UNKNOWN removals
+(:func:`majmin_safe_with_unknown`), so that major / dominant minor / the
+distinct > 1 verdict are per-site properties (:func:`majmin_site_aux`) and
+the four weighted {maj, dmin} cells factor into one (2T x 2T) contraction per
+weight pass.
+
+Weight layouts (``weights`` rows, all ``[rows, N_pad]`` float32, as JAX):
+unit / bf16-exact / split_bf16: 1 row (``pad_weights``); ``int8``: 4 rows
+q1 q2 a1 a2 and ``int8x3``: 6 rows q1..q3 a1..a3 (``pad_weights_int8``).
+``lo_int8`` is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.encode import N_ALLELES, N_CODES, UNKNOWN
+from ..core.paircore import PairStats
+
+DEFAULT_SEQ_CHUNK = 512
+ALL_PLANES = (0, 1, 2, 3, 4)
+
+# Launch counts per kernel entry point: each wrapper adds one where it
+# launches its kernel and nowhere else.
+launches = {"ld_majmin_codes": 0, "ld_majmin_planes": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Host packers: numpy copies of pallas_ld.py's helpers.
+# ---------------------------------------------------------------------------
+
+
+def pad_alignment_site_major(alignment: np.ndarray, tile: int,
+                             seq_chunk: int = DEFAULT_SEQ_CHUNK) -> np.ndarray:
+    """``[N, S]`` sequence-major codes -> ``[S_pad, N_pad]`` site-major,
+    padded with UNKNOWN (code 5) on both axes.  Copy of the numpy path of
+    ``pallas_ld.py:77-97`` (the native transpose is not ported)."""
+    n, s = alignment.shape
+    s_pad = -(-s // tile) * tile
+    n_pad = -(-n // seq_chunk) * seq_chunk
+    out = np.full((s_pad, n_pad), UNKNOWN, dtype=np.int8)
+    out[:s, :n] = alignment.T
+    return out
+
+
+def pad_weights(weights: np.ndarray,
+                seq_chunk: int = DEFAULT_SEQ_CHUNK) -> np.ndarray:
+    """``[1, N_pad]`` float32 weights, zero-padded (``pallas_ld.py:100-105``)."""
+    n = weights.shape[0]
+    n_pad = -(-n // seq_chunk) * seq_chunk
+    out = np.zeros((1, n_pad), dtype=np.float32)
+    out[0, :n] = weights
+    return out
+
+
+def pad_weights_int8(weights: np.ndarray, seq_chunk: int = DEFAULT_SEQ_CHUNK,
+                     levels: int = 2) -> np.ndarray:
+    """Cascaded int8 weight packing, ``[2*levels, N_pad]`` float32 rows
+    q1..qL / a1..aL with ``w ~= sum_l a_l * q_l`` (copy of
+    ``pallas_ld.py:138-181``; levels=3 is the int8x3 default, error <= one
+    f32 ulp of max|w|)."""
+    n = weights.shape[0]
+    n_pad = -(-n // seq_chunk) * seq_chunk
+    w32 = np.zeros(n_pad, dtype=np.float32)
+    w32[:n] = np.asarray(weights, dtype=np.float32)
+    out = np.zeros((2 * levels, n_pad), dtype=np.float32)
+    r = w32.astype(np.float64)  # exact residual cascade
+    for lv in range(levels):
+        s = float(np.abs(r).max())
+        if s <= 0.0:
+            break
+        # Cascade the residual against the f32-rounded scale the kernel
+        # recombines with, so the bound holds end to end.
+        a = np.float32(s / 127.0)
+        q = np.round(r / float(a)).clip(-127, 127)
+        out[lv] = q
+        out[levels + lv] = a
+        r = r - float(a) * q
+    return out
+
+
+def weights_bf16_exact(weights: np.ndarray) -> bool:
+    """True when every weight is exactly representable in bf16 (unit
+    weights, simple fractions) — ``pallas_ld.py:624-630``, with the bf16
+    round trip done by ``torch.bfloat16``."""
+    w = torch.from_numpy(np.ascontiguousarray(weights, dtype=np.float32))
+    return bool((w.to(torch.bfloat16).to(torch.float32) == w).all())
+
+
+def detect_planes_unknown(alignment: np.ndarray) -> tuple:
+    """``(planes, has_unknown)``: the allele codes 0..4 present and whether
+    any UNKNOWN (code 5) cell exists (copy of ``pallas_ld.py:583-615``)."""
+    n_rows = alignment.shape[0]
+    row_bytes = max(1, alignment.shape[1] if alignment.ndim > 1 else 1)
+    step = max(1, (1 << 24) // row_bytes)          # ~16 MB row chunks
+    found = [False] * N_CODES
+    for lo in range(0, n_rows, step):
+        chunk = alignment[lo:lo + step]
+        for c in range(N_CODES):
+            if not found[c] and (chunk == c).any():
+                found[c] = True
+        if all(found):
+            break
+    planes = tuple(c for c in range(N_ALLELES) if found[c])
+    if len(planes) < 2:
+        planes = ALL_PLANES
+    return planes, found[UNKNOWN]
+
+
+def majmin_safe_with_unknown(alignment: np.ndarray | None,
+                             counts: np.ndarray | None = None,
+                             n_seqs: int | None = None) -> bool:
+    """Whether the factorized kernel stays exact despite UNKNOWN cells:
+    per site, with descending counts c1 >= c2 >= c3 over codes 0..4,
+    ``c2 == 0`` or both margins exceed the worst per-pair removal count
+    ``U_max`` (copy of ``pallas_ld.py:770-810``)."""
+    from ..core.sites import site_histogram_host
+
+    if counts is None:
+        counts = site_histogram_host(alignment)
+    counts = counts.astype(np.int64)
+    if n_seqs is None:
+        n_seqs = alignment.shape[0]
+    u_max = int((n_seqs - counts.sum(axis=1)).max())
+    if u_max == 0:
+        return True
+    top = np.sort(counts, axis=1)[:, ::-1]
+    c1, c2, c3 = top[:, 0], top[:, 1], top[:, 2]
+    safe = (c2 == 0) | ((c1 - c2 > u_max) & (c2 - c3 > u_max))
+    return bool(safe.all())
+
+
+def majmin_site_aux(alignment: np.ndarray | None, s_pad: int,
+                    counts: np.ndarray | None = None,
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """Per-site ``(major, dominant minor, distinct)`` for the factorized
+    kernel: ``auxc [s_pad, 3]`` int32 and its transpose ``auxr [3, s_pad]``
+    (copy of ``pallas_ld.py:813-844``).  Ties break to the smaller code;
+    padded sites carry distinct == 0, which drops their pairs."""
+    if counts is None:
+        from ..core.sites import site_histogram_host
+
+        counts = site_histogram_host(alignment)
+    counts = counts.astype(np.int64)                            # [S, 5]
+    s = counts.shape[0]
+    score = counts * 8 + (N_ALLELES - np.arange(N_ALLELES))[None, :]
+    maj = score.argmax(axis=1)
+    score[np.arange(s), maj] = -1
+    dmin = score.argmax(axis=1)
+    auxc = np.zeros((s_pad, 3), dtype=np.int32)
+    auxc[:s, 0] = maj
+    auxc[:s, 1] = dmin
+    auxc[:s, 2] = (counts > 0).sum(axis=1)
+    return auxc, np.ascontiguousarray(auxc.T)
+
+
+# ---------------------------------------------------------------------------
+# Device-side operand builders (XLA code in JAX, torch ops here).
+# ---------------------------------------------------------------------------
+
+
+def build_majmin_planes(codes_sm: torch.Tensor, auxc: torch.Tensor, *,
+                        tile: int) -> torch.Tensor:
+    """``[S_pad, N_pad]`` int8 codes + ``[S_pad, 3]`` aux -> ``[2*S_pad,
+    N_pad]`` int8 indicator planes, rows ``g*2T + i`` = ``codes[g*T+i] ==
+    major`` and ``g*2T + T + i`` = the dominant-minor indicator, so each
+    site tile's ``[maj; dmin]`` block is contiguous (``pallas_ld.py:1074``)."""
+    s_pad, n_pad = codes_sm.shape
+    grid = s_pad // tile
+    aux8 = auxc[:, :2].to(torch.int8)
+    cat = torch.stack([codes_sm == aux8[:, 0:1], codes_sm == aux8[:, 1:2]],
+                      dim=1).to(torch.int8)                 # [S_pad, 2, N_pad]
+    return cat.reshape(grid, tile, 2, n_pad).transpose(1, 2).reshape(
+        grid * 2 * tile, n_pad).contiguous()
+
+
+def build_majmin_xq(planes: torch.Tensor, weights_row: torch.Tensor,
+                    nlev: int) -> torch.Tensor:
+    """``[nlev, 2*S_pad, N_pad]`` int8: the planes scaled by each int8
+    cascade level, ``xq_l = planes * q_l`` (``pallas_ld.py:1097``)."""
+    q = weights_row[:nlev].to(torch.int8)                     # exact integers
+    return torch.stack([planes * q[lv][None, :] for lv in range(nlev)])
+
+
+# ---------------------------------------------------------------------------
+# The pair algebra and the plain versions.
+# ---------------------------------------------------------------------------
+
+
+def pair_algebra(n_mm, n_md, n_dm, n_dd, keep):
+    """D / D' / r2 and the frequency skip rules from the four weighted
+    {maj, dmin} cells — ``pallas_ld.py:_pair_algebra`` (``:434-476``),
+    operation for operation (reciprocal multiplied in; f32 compare with
+    0.95)."""
+    total_w = n_mm + n_md + n_dm + n_dd
+    keep = keep & (total_w > 0)
+    safe_w = torch.where(total_w > 0, total_w, torch.ones_like(total_w))
+    inv_w = torch.div(torch.ones_like(safe_w), safe_w)
+
+    pa_major = (n_mm + n_md) * inv_w
+    pb_major = (n_mm + n_dm) * inv_w
+    pa_minor = (n_dm + n_dd) * inv_w
+    pb_minor = (n_md + n_dd) * inv_w
+    keep = keep & (pa_major < 0.95) & (pb_major < 0.95)
+    keep = keep & (n_mm + n_md > 0) & (n_mm + n_dm > 0)
+
+    obs_mm = n_mm * inv_w
+    obs_md = n_md * inv_w
+    obs_dm = n_dm * inv_w
+    obs_dd = n_dd * inv_w
+
+    t0 = pa_major * pb_major - obs_mm
+    t1 = pa_minor * pb_minor - obs_dd
+    t2 = -(pa_major * pb_minor - obs_md)
+    t3 = -(pa_minor * pb_major - obs_dm)
+    d = (t0 + t1 + t2 + t3) * 0.25
+
+    neg = torch.maximum(-obs_dd, -obs_mm)
+    neg = torch.where(neg == 0, torch.minimum(-obs_dd, -obs_mm), neg)
+    pos = torch.minimum(obs_dm, obs_md)
+    pos = torch.where(pos == 0, torch.maximum(obs_dm, obs_md), pos)
+    denom = torch.where(d < 0, neg, pos)
+    d_prime = d / denom
+
+    r2 = d * d / (pa_major * pa_minor * pb_major * pb_minor)
+    return d, d_prime, r2, keep
+
+
+def _weight_mode(weights: torch.Tensor, exact_weights: bool,
+                 unit_weights: bool, wquant: str) -> tuple[str, int]:
+    """``(kind, nlev)`` of the weight passes, with JAX's precedence: unit,
+    then bf16-exact, then the int8 cascades, then split_bf16."""
+    if unit_weights:
+        kind, nlev, rows = "unit", 1, 1
+    elif exact_weights:
+        kind, nlev, rows = "exact", 0, 1
+    elif wquant in ("int8", "int8x3"):
+        nlev = 2 if wquant == "int8" else 3
+        kind, rows = "int", 2 * nlev
+    elif wquant == "":
+        kind, nlev, rows = "split", 0, 1
+    elif wquant == "lo_int8":
+        raise NotImplementedError(
+            "weight_quant='lo_int8' is not ported to weightedld_tpu_torch "
+            "yet (ROADMAP queue 2 item 5)")
+    else:
+        raise ValueError(f"unknown wquant {wquant!r}")
+    if weights.dim() != 2 or weights.shape[0] != rows:
+        raise ValueError(
+            f"weights layout {tuple(weights.shape)} does not match the "
+            f"weight mode {kind!r} (expected {rows} rows)")
+    return kind, nlev
+
+
+def _float_rows(weights: torch.Tensor, kind: str) -> list[torch.Tensor]:
+    """The f32 weight rows of the float passes: the bf16-exact weights, or
+    split_bf16's (w_hi, w_lo) — each the f32 value of a bf16 number."""
+    w = weights[0]
+    if kind == "exact":
+        return [w]
+    w_hi = w.to(torch.bfloat16).to(torch.float32)
+    w_lo = (w - w_hi).to(torch.bfloat16).to(torch.float32)
+    return [w_hi, w_lo]
+
+
+def _tile_rows(tiles: torch.Tensor, span: int) -> torch.Tensor:
+    """Row indices ``[K, span]`` of each tile's ``span`` consecutive rows."""
+    ar = torch.arange(span, device=tiles.device, dtype=torch.int64)
+    return tiles.to(torch.int64)[:, None] * span + ar[None, :]
+
+
+def _cells_plain(a_ops: list[torch.Tensor], y: torch.Tensor,
+                 weights: torch.Tensor, kind: str, nlev: int,
+                 seq_chunk: int) -> torch.Tensor:
+    """``[K, 2T, 2T]`` f32 accumulator of the weighted {maj,dmin} cells.
+
+    The int32 joints are computed exactly as float64 matrix products of the
+    int8 operands (|q| <= 127, so every partial sum is an exact integer);
+    float passes as float64 products rounded once to f32.  The f32 combine
+    runs once per seq chunk, as the kernels do."""
+    n_pad = y.shape[-1]
+    acc = None
+    for c0 in range(0, n_pad, seq_chunk):
+        sl = slice(c0, c0 + seq_chunk)
+        yc = y[..., sl].to(torch.float64).transpose(1, 2)    # [K, Nc, 2T]
+        cells = None
+        if kind == "unit":
+            cells = torch.bmm(a_ops[0][..., sl].to(torch.float64),
+                              yc).to(torch.float32)
+        elif kind == "int":
+            for lv in range(nlev):
+                j = torch.bmm(a_ops[lv][..., sl].to(torch.float64),
+                              yc).to(torch.float32)
+                term = weights[nlev + lv, 0] * j
+                cells = term if cells is None else cells + term
+        else:
+            for w in _float_rows(weights, kind):
+                xs = a_ops[0][..., sl].to(torch.float64) \
+                    * w[sl].to(torch.float64)
+                term = torch.bmm(xs, yc).to(torch.float32)
+                cells = term if cells is None else cells + term
+        acc = cells if acc is None else acc + cells
+    return acc
+
+
+def _finalize_plain(acc, dist_a, dist_b, tile_i, tile_j, emit, tile,
+                    n_sites) -> PairStats:
+    t = tile
+    keep = (dist_a[:, :, None] > 1) & (dist_b[:, None, :] > 1)
+    d, dp, r2, keep = pair_algebra(acc[:, :t, :t], acc[:, :t, t:],
+                                   acc[:, t:, :t], acc[:, t:, t:], keep)
+    ar = torch.arange(t, device=acc.device, dtype=torch.int64)
+    gi = tile_i.to(torch.int64)[:, None, None] * t + ar[None, :, None]
+    gj = tile_j.to(torch.int64)[:, None, None] * t + ar[None, None, :]
+    keep = keep & (gi < gj) & (gj < n_sites) & (emit[:, None, None] != 0)
+    return PairStats(d=d.contiguous(), d_prime=dp.contiguous(),
+                     r2=r2.contiguous(), keep=keep)
+
+
+def tile_stats_majmin_plain(codes_sm, weights, auxc, tile_i, tile_j, emit, *,
+                            tile: int, n_sites: int,
+                            seq_chunk: int = DEFAULT_SEQ_CHUNK,
+                            exact_weights: bool = False,
+                            unit_weights: bool = False,
+                            wquant: str = "") -> PairStats:
+    """Plain PyTorch version of :func:`tile_stats_majmin` (any device)."""
+    kind, nlev = _weight_mode(weights, exact_weights, unit_weights, wquant)
+    k = tile_i.shape[0]
+    rows_i = _tile_rows(tile_i, tile)
+    rows_j = _tile_rows(tile_j, tile)
+
+    def indicators(rows):
+        a = codes_sm[rows.reshape(-1)].reshape(k, tile, -1)
+        aux = auxc[rows.reshape(-1)].reshape(k, tile, 3).to(torch.int8)
+        return torch.cat([a == aux[:, :, 0:1], a == aux[:, :, 1:2]],
+                         dim=1).to(torch.int8)                # [K, 2T, N]
+
+    x = indicators(rows_i)
+    y = indicators(rows_j)
+    if kind == "int":
+        q = weights[:nlev].to(torch.int8)
+        a_ops = [x * q[lv][None, None, :] for lv in range(nlev)]
+    else:
+        a_ops = [x]
+    acc = _cells_plain(a_ops, y, weights, kind, nlev, seq_chunk)
+    return _finalize_plain(acc, auxc[rows_i, 2], auxc[rows_j, 2], tile_i,
+                           tile_j, emit, tile, n_sites)
+
+
+def tile_stats_majmin_pre_plain(planes, xq, weights, auxc, tile_i, tile_j,
+                                emit, *, tile: int, n_sites: int,
+                                seq_chunk: int = DEFAULT_SEQ_CHUNK,
+                                exact_weights: bool = False,
+                                unit_weights: bool = False,
+                                wquant: str = "") -> PairStats:
+    """Plain PyTorch version of :func:`tile_stats_majmin_pre` (any device)."""
+    kind, nlev = _weight_mode(weights, exact_weights, unit_weights, wquant)
+    k = tile_i.shape[0]
+    prow_i = _tile_rows(tile_i, 2 * tile).reshape(-1)
+    prow_j = _tile_rows(tile_j, 2 * tile).reshape(-1)
+    y = planes[prow_j].reshape(k, 2 * tile, -1)
+    if kind == "int":
+        a_ops = [xq[lv][prow_i].reshape(k, 2 * tile, -1)
+                 for lv in range(nlev)]
+    else:
+        a_ops = [planes[prow_i].reshape(k, 2 * tile, -1)]
+    acc = _cells_plain(a_ops, y, weights, kind, nlev, seq_chunk)
+    return _finalize_plain(acc, auxc[_tile_rows(tile_i, tile), 2],
+                           auxc[_tile_rows(tile_j, tile), 2], tile_i, tile_j,
+                           emit, tile, n_sites)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: CPU tensors -> plain version; CUDA tensors -> the kernel.
+# ---------------------------------------------------------------------------
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if len(shape) != t.dim() or any(
+            want is not None and want != got
+            for want, got in zip(shape, t.shape)):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple('*' if s is None else s for s in shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_common(weights, auxc, tile_i, tile_j, emit, *, s_pad, n_pad,
+                  tile, n_sites, seq_chunk, device, exact_weights,
+                  unit_weights, wquant) -> tuple[str, int]:
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    if tile <= 0 or s_pad % tile:
+        raise ValueError(f"S_pad={s_pad} is not a multiple of tile={tile}")
+    if seq_chunk <= 0 or seq_chunk % 4 or n_pad % seq_chunk:
+        raise ValueError(f"N_pad={n_pad} must be a multiple of seq_chunk="
+                         f"{seq_chunk}, itself a multiple of 4")
+    if not 0 <= n_sites <= s_pad:
+        raise ValueError(f"n_sites={n_sites} outside [0, S_pad={s_pad}]")
+    _check("weights", weights, torch.float32, (None, n_pad), device)
+    _check("auxc", auxc, torch.int32, (s_pad, 3), device)
+    k = tile_i.shape[0] if isinstance(tile_i, torch.Tensor) else -1
+    for nm, t in (("tile_i", tile_i), ("tile_j", tile_j), ("emit", emit)):
+        _check(nm, t, torch.int32, (k,), device)
+    if k > 0:
+        grid = s_pad // tile
+        lo = torch.minimum(tile_i.min(), tile_j.min())
+        hi = torch.maximum(tile_i.max(), tile_j.max())
+        if int(lo) < 0 or int(hi) >= grid:
+            raise ValueError(f"tile indices outside [0, {grid})")
+    return _weight_mode(weights, exact_weights, unit_weights, wquant)
+
+
+def _launch(name: str, src0: int, src1: int, weights, auxc, tile_i,
+            tile_j, emit, *, kind, nlev, tile, n_sites, s_pad, n_pad,
+            seq_chunk) -> PairStats:
+    """Launch ``name`` on the current stream; ``src0``/``src1`` are the
+    operand-source pointers (codes and q, or planes and xq).  Temporaries
+    made here are freed after the call in stream order, after the kernel."""
+    from ._build import load_library
+
+    dev = weights.device
+    k = tile_i.shape[0]
+    scale_ptr = wf_ptr = 0
+    if kind in ("unit", "int"):
+        scale = (torch.ones(1, dtype=torch.float32, device=dev)
+                 if kind == "unit" else weights[nlev:2 * nlev, 0].contiguous())
+        scale_ptr, nflt = scale.data_ptr(), 0
+    else:
+        wf = torch.stack(_float_rows(weights, kind)).contiguous()
+        wf_ptr, nflt, nlev = wf.data_ptr(), wf.shape[0], 0
+    d = torch.empty((k, tile, tile), dtype=torch.float32, device=dev)
+    dp = torch.empty_like(d)
+    r2 = torch.empty_like(d)
+    keep = torch.empty((k, tile, tile), dtype=torch.int8, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, name)(
+            src0, src1, scale_ptr, wf_ptr, auxc.data_ptr(),
+            tile_i.data_ptr(), tile_j.data_ptr(), emit.data_ptr(),
+            d.data_ptr(), dp.data_ptr(), r2.data_ptr(), keep.data_ptr(),
+            k, tile, n_sites, s_pad, n_pad, seq_chunk, nlev, nflt, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+    if k > 0:
+        launches[name] += 1
+    return PairStats(d=d, d_prime=dp, r2=r2, keep=keep.view(torch.bool))
+
+
+def tile_stats_majmin(codes_sm, weights, auxc, tile_i, tile_j, emit, *,
+                      tile: int, n_sites: int,
+                      seq_chunk: int = DEFAULT_SEQ_CHUNK,
+                      exact_weights: bool = False, unit_weights: bool = False,
+                      wquant: str = "") -> PairStats:
+    """LD statistics ``[K, T, T]`` (d, d_prime, r2 float32, keep bool) for K
+    tile pairs, from ``[S_pad, N_pad]`` int8 site-major codes and the
+    ``[S_pad, 3]`` int32 aux of :func:`majmin_site_aux` — the contract of
+    ``pallas_tile_stats_majmin`` (its row-layout ``auxr`` is not needed)."""
+    device = codes_sm.device
+    s_pad = codes_sm.shape[0]
+    n_pad = codes_sm.shape[1] if codes_sm.dim() == 2 else -1
+    _check("codes_sm", codes_sm, torch.int8, (s_pad, n_pad), device)
+    kind, nlev = _check_common(
+        weights, auxc, tile_i, tile_j, emit, s_pad=s_pad, n_pad=n_pad,
+        tile=tile, n_sites=n_sites, seq_chunk=seq_chunk, device=device,
+        exact_weights=exact_weights, unit_weights=unit_weights,
+        wquant=wquant)
+    kw = dict(tile=tile, n_sites=n_sites, seq_chunk=seq_chunk,
+              exact_weights=exact_weights, unit_weights=unit_weights,
+              wquant=wquant)
+    if device.type == "cpu":
+        return tile_stats_majmin_plain(codes_sm, weights, auxc, tile_i,
+                                       tile_j, emit, **kw)
+    q_ptr = 0
+    if kind == "unit":
+        q = torch.ones((1, n_pad), dtype=torch.int8, device=device)
+    elif kind == "int":
+        q = weights[:nlev].to(torch.int8).contiguous()
+    else:
+        q = None
+    if q is not None:
+        q_ptr = q.data_ptr()
+    return _launch("ld_majmin_codes", codes_sm.data_ptr(), q_ptr, weights,
+                   auxc, tile_i, tile_j, emit, kind=kind, nlev=nlev,
+                   tile=tile, n_sites=n_sites, s_pad=s_pad, n_pad=n_pad,
+                   seq_chunk=seq_chunk)
+
+
+def tile_stats_majmin_pre(planes, xq, weights, auxc, tile_i, tile_j, emit, *,
+                          tile: int, n_sites: int,
+                          seq_chunk: int = DEFAULT_SEQ_CHUNK,
+                          exact_weights: bool = False,
+                          unit_weights: bool = False,
+                          wquant: str = "") -> PairStats:
+    """Preplaned twin of :func:`tile_stats_majmin` — identical outputs.
+    ``planes`` is ``[2*S_pad, N_pad]`` int8 from :func:`build_majmin_planes`;
+    ``xq`` the ``[nlev, 2*S_pad, N_pad]`` int8 of :func:`build_majmin_xq`
+    for the int8 cascades, else None."""
+    device = planes.device
+    s2 = planes.shape[0]
+    n_pad = planes.shape[1] if planes.dim() == 2 else -1
+    _check("planes", planes, torch.int8, (s2, n_pad), device)
+    if s2 % 2:
+        raise ValueError(f"planes has an odd row count {s2}")
+    s_pad = s2 // 2
+    kind, nlev = _check_common(
+        weights, auxc, tile_i, tile_j, emit, s_pad=s_pad, n_pad=n_pad,
+        tile=tile, n_sites=n_sites, seq_chunk=seq_chunk, device=device,
+        exact_weights=exact_weights, unit_weights=unit_weights,
+        wquant=wquant)
+    if kind == "int":
+        _check("xq", xq, torch.int8, (nlev, s2, n_pad), device)
+    kw = dict(tile=tile, n_sites=n_sites, seq_chunk=seq_chunk,
+              exact_weights=exact_weights, unit_weights=unit_weights,
+              wquant=wquant)
+    if device.type == "cpu":
+        return tile_stats_majmin_pre_plain(planes, xq, weights, auxc, tile_i,
+                                           tile_j, emit, **kw)
+    # Unit weights read the planes as their single int8 level.
+    xq_ptr = xq.data_ptr() if kind == "int" else planes.data_ptr()
+    return _launch("ld_majmin_planes", planes.data_ptr(), xq_ptr, weights,
+                   auxc, tile_i, tile_j, emit, kind=kind, nlev=nlev,
+                   tile=tile, n_sites=n_sites, s_pad=s_pad, n_pad=n_pad,
+                   seq_chunk=seq_chunk)
