@@ -6,14 +6,19 @@
 Phases (each failure propagates; the script exits non-zero and prints no
 result line):
 
-1. build   — print the card's name and power limit, build
-             ``weightedld_tpu_torch/csrc/ld_majmin.cu`` for sm_90a with nvcc.
+1. build   — print the card's name and power limit, build every
+             ``weightedld_tpu_torch/csrc/*.cu`` for sm_90a (one nvcc per
+             source, all started together).
 2. kernels — each kernel entry point against its plain PyTorch version on
-             the card, on random no-UNKNOWN alignments from numpy seeds
-             (ragged S and N, several seq chunks, emit=0 tiles, int8x3 /
-             int8 / unit / bf16-exact / split_bf16 weights); then the
-             kernel's and the plain version's time on the full tile plan of
-             N=1,000 x S=8,192, whose outputs are held against each other.
+             the card: the factorized entries on random no-UNKNOWN
+             alignments, the general entries (codes and preplaned, weighted
+             and unit) on alignments with 1-10 % UNKNOWN cells and P = 2..5
+             planes, a restricted ``planes`` tuple among them (ragged S and
+             N, several seq chunks, emit=0 tiles, int8x3 / int8 / unit /
+             bf16-exact / split_bf16 weights); then each kernel's and its
+             plain version's time on the full tile plan of N=1,000 x
+             S=8,192 (the general kernels at P = 5 with 1 % UNKNOWN sites),
+             whose outputs are held against each other.
 3. main    — the CLI in-process on a synthetic VCF at the headline shape
              (1,000 haplotypes x 49,152 sites, the loaded distribution with
              3,400 planted site triplets), ``--r2-threshold 0.1``: every
@@ -29,18 +34,40 @@ result line):
              seq chunks): the two TSVs must be byte-identical, the card run
              must launch a kernel and the CPU run none; then the session's
              batch, kernel against plain.
+5. ambiguous — the ambiguity-code path at full size: a synthetic FASTA of
+             1,024 sequences x 16,384 columns over A C G T - with 1-2
+             ambiguity characters (N R Y) at 1 % of the columns and planted
+             correlated column triplets, some through ambiguous columns.
+             (1) the CLI, ``--r2-threshold 0.1``: the hybrid session
+             (unsafe-site packing, factorized kernel on the safe tile pairs,
+             ``ld_general`` on the rest), every planted pair present;
+             (2) ``run_to_tsv(kernel="general")``: only ``ld_general``, the
+             same record set with values within rtol 2e-5 / atol 1e-6 (the
+             packing flips some pairs' in-kernel orientation), and with
+             ``preplaned="on"`` only ``ld_general_planes`` and the same
+             bytes; (3) the CLI with ``--unweighted``: ``ld_general_unit``;
+             (4) CPU vs card on the first 4,096 columns, ``--tile 256
+             --seq-chunk 256 --r2-threshold 0.03``, weighted and
+             unweighted: byte-identical TSVs,
+             general kernels on the card and no launch on the CPU; (5) the
+             general batch of the CLI's hybrid session, and batch 0 of the
+             ``kernel="general"`` session and of its unit twin, kernel
+             against plain.
 
 Not in the default run: ``--phases profile`` times the headline scan and
 breaks one scan down by device kernel with torch.profiler; ``--phases
-entries`` times the two entry points over whole sessions at several N and
-S, interleaved.
+entries`` times the two factorized entry points over whole sessions at
+several N and S, interleaved.
 
 The launch counters are zeroed just before each run of the main path and
 read just after it; the kernels line reports ``ld_majmin_planes`` from the
-headline CLI run and ``ld_majmin_codes`` from the headline codes-entry run.  Launches of
-the kernel-vs-plain checks are not counted.  The last three lines of
-standard output are the kernels JSON, the card line from nvidia-smi, and
-the result JSON.  The script makes only card 0 visible to itself.
+headline CLI run, ``ld_majmin_codes`` from the headline codes-entry run,
+``ld_general`` from the ambiguous CLI run, ``ld_general_planes`` from its
+preplaned ``kernel="general"`` run and ``ld_general_unit`` from its
+``--unweighted`` CLI run.  Launches of the kernel-vs-plain checks are not
+counted.  The last three lines of standard output are the kernels JSON,
+the card line from nvidia-smi, and the result JSON.  The script makes only
+the first visible card visible to itself.
 """
 
 from __future__ import annotations
@@ -69,11 +96,21 @@ SLICE_SITES = 4096
 ENTRY_SHAPES = ((500, S_HEAD), (1000, S_HEAD), (2000, S_HEAD),
                 (1000, 147456))
 
+# The ambiguous cell: sequences x columns, ambiguous columns, planted
+# triplets, and the columns of its CPU-vs-card slice.
+N_AMB, S_AMB, N_DIRTY, N_AMB_GROUPS = 1024, 16384, 164, 300
+AMB_SLICE = 4096
+
+# name -> (TPU kernel it replaces, source)
+MAJMIN_SRC = "weightedld_tpu_torch/csrc/ld_majmin.cu"
+GENERAL_SRC = "weightedld_tpu_torch/csrc/ld_general.cu"
 KERNELS = {
-    "ld_majmin_codes": "weightedld_tpu/ops/pallas_ld.py:847",
-    "ld_majmin_planes": "weightedld_tpu/ops/pallas_ld.py:1110",
+    "ld_majmin_codes": ("weightedld_tpu/ops/pallas_ld.py:847", MAJMIN_SRC),
+    "ld_majmin_planes": ("weightedld_tpu/ops/pallas_ld.py:1110", MAJMIN_SRC),
+    "ld_general": ("weightedld_tpu/ops/pallas_ld.py:184", GENERAL_SRC),
+    "ld_general_unit": ("weightedld_tpu/ops/pallas_ld.py:361", GENERAL_SRC),
+    "ld_general_planes": ("weightedld_tpu/ops/pallas_ld.py:658", GENERAL_SRC),
 }
-SOURCE = "weightedld_tpu_torch/csrc/ld_majmin.cu"
 
 
 def log(msg: str) -> None:
@@ -100,8 +137,9 @@ def phase_build() -> None:
     t0 = time.monotonic()
     _build.load_library()
     info = _build.build_info
-    log(f"[build] {info.path.name}: compiled={info.compiled} "
-        f"nvcc {info.seconds:.2f}s, load {time.monotonic() - t0:.2f}s")
+    log(f"[build] {[p.name for p in info.paths]}: compiled "
+        f"{info.compiled} in parallel, nvcc {info.seconds:.2f}s, build + "
+        f"load {time.monotonic() - t0:.2f}s")
     for line in info.ptxas.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] ptxas: {line.strip()}")
@@ -113,14 +151,15 @@ def phase_build() -> None:
 
 
 def _case_inputs(seed, alphabet, n_seqs, n_sites, tile, seq_chunk, wq,
-                 device):
+                 device, aln=None):
     import torch
 
     from weightedld_tpu_torch.ops import cuda_ld as K
     from weightedld_tpu_torch.parallel.triangle import plan_tiles
 
     rng = np.random.default_rng(seed)
-    aln = rng.choice(alphabet, size=(n_seqs, n_sites)).astype(np.int8)
+    if aln is None:
+        aln = rng.choice(alphabet, size=(n_seqs, n_sites)).astype(np.int8)
     if wq == "unit":
         w = np.ones(n_seqs, np.float32)
     elif wq == "exact":
@@ -143,6 +182,28 @@ def _case_inputs(seed, alphabet, n_seqs, n_sites, tile, seq_chunk, wq,
               wquant=wq if wq in ("int8", "int8x3") else "")
     return (t(codes), t(wr), t(auxc), t(plan.tile_i), t(plan.tile_j),
             t(emit), kw)
+
+
+def _general_case_inputs(seed, alphabet, n_seqs, n_sites, tile, seq_chunk,
+                         wq, unknown, planes, device, dirty_sites=None):
+    """Inputs of the general kernel: UNKNOWN cells at a fraction
+    ``unknown`` of all cells, or 1-2 cells at ``dirty_sites`` random sites;
+    ``planes`` None = the planes present."""
+    from weightedld_tpu_torch.ops import cuda_ld as K
+
+    rng = np.random.default_rng(seed)
+    aln = rng.choice(alphabet, size=(n_seqs, n_sites)).astype(np.int8)
+    if dirty_sites is None:
+        aln[rng.random(aln.shape) < unknown] = 5
+    else:
+        for s in rng.choice(n_sites, size=dirty_sites, replace=False):
+            aln[rng.choice(n_seqs, size=rng.integers(1, 3), replace=False),
+                s] = 5
+    out = _case_inputs(seed, alphabet, n_seqs, n_sites, tile, seq_chunk, wq,
+                       device, aln=aln)
+    codes, wr, _auxc, ti, tj, em, kw = out
+    kw["planes"] = planes or K.detect_planes_unknown(aln)[0]
+    return codes, wr, ti, tj, em, kw
 
 
 def _compare(got, ref, label: str) -> float:
@@ -188,41 +249,44 @@ def _time_cuda(fn, reps: int):
     return start.elapsed_time(stop) / reps, out
 
 
-def check_session_batch(sess, label: str, piece: int = 128) -> float:
-    """Batch 0 of ``sess`` through its kernel entry, with the session's own
-    operands, tile lists and keywords (the main path's launch shape), held
-    against the plain version (run ``piece`` tiles at a time: every tile is
-    independent); returns the max abs error on kept pairs."""
+def check_session_batch(sess, label: str, b: int = 0,
+                        piece: int = 128) -> tuple[str, float]:
+    """Batch ``b`` of ``sess`` through its kernel entry, with the session's
+    own operands, tile lists and keywords (the main path's launch shape),
+    held against the plain version (run ``piece`` tiles at a time: every
+    tile is independent); returns the kernel's name and the max abs error
+    on kept pairs."""
     import torch
 
-    from weightedld_tpu_torch.ops import cuda_ld as K
+    from weightedld_tpu_torch.ops import cuda_general, cuda_ld
 
-    fn, plain = ((K.tile_stats_majmin_pre, K.tile_stats_majmin_pre_plain)
-                 if sess.preplaned else
-                 (K.tile_stats_majmin, K.tile_stats_majmin_plain))
-    args = (*sess.operands, sess.weights_dev, sess.auxc_dev)
-    ti, tj, em = sess.batch_tiles(0)
-    got = fn(*args, ti, tj, em, **sess.kernel_kw)
+    fn, plain, args, kw = sess.batch_kernel(b)
+    ti, tj, em = sess.batch_tiles(b)
+    before = {**cuda_ld.launches, **cuda_general.launches}
+    got = fn(*args, ti, tj, em, **kw)
+    after = {**cuda_ld.launches, **cuda_general.launches}
+    (name,) = [n for n in after if after[n] != before[n]]
     parts = [plain(*args, ti[p:p + piece], tj[p:p + piece], em[p:p + piece],
-                   **sess.kernel_kw) for p in range(0, ti.shape[0], piece)]
+                   **kw) for p in range(0, ti.shape[0], piece)]
     ref = type(got)(*(torch.cat([getattr(x, f) for x in parts])
                       for f in got._fields))
     torch.cuda.synchronize()
     e = _compare(got, ref, label)
-    log(f"[check] ok: {label}: batch 0 of {sess.n_batches}, "
+    log(f"[check] ok: {label}: {name} batch {b} of {sess.n_batches}, "
         f"{ti.shape[0]} tiles, {sess.cfg}, {int(ref.keep.sum())} kept pairs, "
         f"max |kernel - plain| {e}")
-    return e
+    return name, e
 
 
 def phase_kernels() -> dict:
     import torch
 
+    from weightedld_tpu_torch.ops import cuda_general as G
     from weightedld_tpu_torch.ops import cuda_ld as K
 
     dev = torch.device("cuda")
     err = {name: 0.0 for name in KERNELS}
-    bitwise = {name: True for name in KERNELS}
+    bitwise = {name: True for name in ("ld_majmin_codes", "ld_majmin_planes")}
     cases = [
         # seed, alphabet, N, S, tile, seq_chunk, weight mode
         (1, (0, 1, 4), 1000, 700, 256, 256, "int8x3"),
@@ -290,12 +354,84 @@ def phase_kernels() -> dict:
         log(f"[kernels] ok: {name} timed calls, {ti.shape[0]} tiles in "
             f"{len(got)} launches of <= {batch}, kernel == plain")
         del got, ref
+    del codes, planes, xq
+
+    # The general kernel's entries (codes, unit weights, preplaned) against
+    # their plain versions: P = 2..5, 1-10 % UNKNOWN cells, a restricted
+    # planes tuple, every weight mode.
+    gcases = [
+        # seed, alphabet, N, S, tile, seq_chunk, weights, UNKNOWN, planes
+        (21, (0, 1, 2, 3, 4), 1000, 700, 256, 256, "int8x3", 0.01, None),
+        (22, (0, 1, 2, 3, 4), 150, 300, 48, 64, "int8x3", 0.05, None),
+        (23, (0, 1, 4), 150, 300, 48, 64, "unit", 0.10, None),
+        (24, (0, 1), 150, 300, 48, 64, "exact", 0.05, None),
+        (25, (0, 1, 2, 4), 150, 300, 48, 64, "split_bf16", 0.03, None),
+        (26, (0, 3, 4), 150, 300, 48, 64, "int8", 0.02, None),
+        (27, (0, 1, 2, 3, 4), 37, 90, 32, 40, "unit", 0.05, None),
+        (28, (0, 1, 2, 3, 4), 333, 257, 64, 120, "int8x3", 0.04, (0, 2, 4)),
+        (29, (0, 1, 2, 3, 4), 333, 257, 64, 120, "unit", 0.04, (1, 3)),
+    ]
+    for seed, alpha, n, s, tile, chunk, wq, unk, planes in gcases:
+        codes, wr, ti, tj, em, kw = _general_case_inputs(
+            seed, alpha, n, s, tile, chunk, wq, unk, planes, dev)
+        label = (f"N={n} S={s} T={tile} chunk={chunk} {wq} UNKNOWN {unk} "
+                 f"planes={kw['planes']}")
+        for pre in (False, True):
+            src = G.build_planes_tiled(codes, tile=tile, planes=kw["planes"]) \
+                if pre else codes
+            name = "ld_general_planes" if pre else (
+                "ld_general_unit" if wq == "unit" else "ld_general")
+            got = G.tile_stats_general(src, wr, ti, tj, em, preplaned=pre,
+                                       **kw)
+            ref = G.tile_stats_general_plain(src, wr, ti, tj, em,
+                                             preplaned=pre, **kw)
+            torch.cuda.synchronize()
+            err[name] = max(err[name], _compare(got, ref, f"{name} {label}"))
+            bitwise[name] = bitwise.get(name, True) and bool(torch.equal(
+                got.r2[ref.keep], ref.r2[ref.keep]))
+        log(f"[kernels] ok: general {label}")
+    log(f"[kernels] max |kernel - plain| on kept pairs: {err}; "
+        f"r2 bitwise equal: {bitwise}")
+
+    # Time the general entries and their plain versions on the full plan of
+    # N=1,000 x S=8,192 at P = 5 with 1 % UNKNOWN sites (T=256, one
+    # 1,024-wide chunk; int8x3 and unit weights), outputs held against
+    # each other.
+    gtimed = {}
+    for name, wq, pre in (("ld_general", "int8x3", False),
+                          ("ld_general_unit", "unit", False),
+                          ("ld_general_planes", "int8x3", True)):
+        codes, wr, ti, tj, em, kw = _general_case_inputs(
+            31, (0, 1, 2, 3, 4), N_HEAD, S_TIMED, 256, 1024, wq, 0.0, None,
+            dev, dirty_sites=S_TIMED // 100)
+        em = torch.ones_like(em)
+        src = G.build_planes_tiled(codes, tile=256, planes=kw["planes"]) \
+            if pre else codes
+
+        def grun(fn):
+            return [fn(src, wr, ti[lo:lo + batch], tj[lo:lo + batch],
+                       em[lo:lo + batch], preplaned=pre, **kw)
+                    for lo in range(0, ti.shape[0], batch)]
+
+        ms[name], got = _time_cuda(lambda: grun(G.tile_stats_general), 3)
+        plain_ms[name], ref = _time_cuda(
+            lambda: grun(G.tile_stats_general_plain), 1)
+        for b, (g, r) in enumerate(zip(got, ref)):
+            err[name] = max(err[name], _compare(
+                g, r, f"{name} timed N={N_HEAD} S={S_TIMED} chunk=1024 "
+                f"batch {b}"))
+        gtimed[name] = f"{wq}, P={len(kw['planes'])}"
+        log(f"[kernels] ok: {name} timed calls, {ti.shape[0]} tiles in "
+            f"{len(got)} launches of <= {batch}, kernel == plain")
+        del got, ref, codes, src
+
     n_pairs = S_TIMED * (S_TIMED - 1) // 2
     for name in KERNELS:
         log(f"[kernels] {name}: {ms[name]:.3f} ms kernel vs "
             f"{plain_ms[name]:.3f} ms plain for {ti.shape[0]} tiles "
-            f"(N={N_HEAD}, S={S_TIMED}, T=256, int8x3): "
-            f"{n_pairs / (ms[name] / 1e3):.4g} pairs/s kernel")
+            f"(N={N_HEAD}, S={S_TIMED}, T=256, "
+            f"{gtimed.get(name, 'int8x3')}): "
+            f"{n_pairs / (ms[name] / 1e3):.4g} pairs/s kernel | {card_line()}")
     return {"err": err, "ms": ms, "plain_ms": plain_ms}
 
 
@@ -368,11 +504,12 @@ def _session(res, **cfg):
 
 def _counted(fn, *args, **kwargs):
     """``(fn's result, the kernel launch counts of that call alone)``."""
-    from weightedld_tpu_torch.ops import cuda_ld
+    from weightedld_tpu_torch.ops import cuda_general, cuda_ld
 
     cuda_ld.reset_launches()
+    cuda_general.reset_launches()
     out = fn(*args, **kwargs)
-    return out, dict(cuda_ld.launches)
+    return out, {**cuda_ld.launches, **cuda_general.launches}
 
 
 def _drive(argv: list[str], timer=None) -> dict:
@@ -410,10 +547,7 @@ def phase_main(tmp: Path) -> tuple[dict, dict]:
         raise AssertionError("the headline run never launched "
                              "ld_majmin_planes")
     pairs = set(read_pairs(out))
-    planted = set()
-    for trip in seeds:
-        a, b, c = sorted(int(x) + 1 for x in trip)
-        planted |= {(a, b), (a, c), (b, c)}
+    planted = planted_pairs(seeds, offset=1)         # VCF POS = index + 1
     missing = planted - pairs
     if missing:
         raise AssertionError(f"{len(missing)} of {len(planted)} planted "
@@ -454,7 +588,7 @@ def phase_main(tmp: Path) -> tuple[dict, dict]:
         if sess.preplaned != (name == "ld_majmin_planes"):
             raise AssertionError(f"headline preplaned={pp}: session chose "
                                  f"preplaned={sess.preplaned}")
-        err[name] = check_session_batch(sess, f"headline {name}")
+        _name, err[name] = check_session_batch(sess, f"headline {name}")
         del sess
     return launches, err
 
@@ -493,8 +627,241 @@ def phase_cpu_vs_card(tmp: Path) -> tuple[str, float]:
         f"({len(outs['cuda'])} bytes)")
     sess = _session(prepare(vcf), tile=256, seq_chunk=200,
                     r2_threshold=0.005)
-    name = "ld_majmin_planes" if sess.preplaned else "ld_majmin_codes"
-    return name, check_session_batch(sess, f"slice {name}")
+    return check_session_batch(sess, "slice")
+
+
+def ambiguous_alignment(rng, n_seqs, n_sites, n_groups, n_dirty):
+    """Codes over A C G T - at 22 / 22 / 22 / 22 / 12 % (near-balanced
+    counts, so small count margins), ``n_groups`` planted triplets (a seed
+    column over A C G T at 45 / 35 / 8 / 6 % in a random order and - at
+    6 %, so that its major and dominant minor are clear, plus two copies
+    with 2 % of cells redrawn), then 1-2 UNKNOWN cells at ``n_dirty``
+    columns, a quarter of them members of planted triplets.  Returns
+    ``(codes, triplets, dirty columns)``."""
+    r = rng.random((n_seqs, n_sites))
+    aln = np.searchsorted(np.array([0.22, 0.44, 0.66, 0.88]), r,
+                          side="right").astype(np.int8)
+    trips = rng.choice(n_sites, size=(n_groups, 3), replace=False)
+    skew = np.array([0.45, 0.80, 0.88, 0.94])
+    for s0, s1, s2 in trips:
+        order = np.append(rng.permutation(4), 4).astype(np.int8)
+        aln[:, s0] = order[np.searchsorted(skew, rng.random(n_seqs),
+                                           side="right")]
+        for dst in (s1, s2):
+            col = aln[:, s0].copy()
+            mut = rng.random(n_seqs) < 0.02
+            col[mut] = rng.integers(0, 5, size=int(mut.sum()))
+            aln[:, dst] = col
+    planted = trips.reshape(-1)
+    others = np.setdiff1d(np.arange(n_sites), planted)
+    dirty = np.concatenate([
+        rng.choice(planted, n_dirty // 4, replace=False),
+        rng.choice(others, n_dirty - n_dirty // 4, replace=False)])
+    for s in dirty:
+        aln[rng.choice(n_seqs, size=rng.integers(1, 3), replace=False), s] = 5
+    return aln, trips, dirty
+
+
+def write_fasta_codes(path: Path, aln: np.ndarray, rng) -> None:
+    """FASTA text of ``aln``: codes 0..4 as A C G T -, UNKNOWN as one of
+    N R Y."""
+    lut = np.frombuffer(b"ACGT-N", np.uint8)
+    ch = lut[aln]
+    unk = aln == 5
+    ch[unk] = np.frombuffer(b"NRY", np.uint8)[
+        rng.integers(0, 3, size=int(unk.sum()))]
+    with open(path, "wb") as fh:
+        for i, row in enumerate(ch):
+            fh.write(b">s%d\n" % i)
+            fh.write(row.tobytes())
+            fh.write(b"\n")
+
+
+def read_records(path: Path) -> dict:
+    """``{(pos_a, pos_b): (d, d', r2)}`` of a pair TSV."""
+    out = {}
+    with open(path) as fh:
+        next(fh)
+        for line in fh:
+            a, b, d, dp, r2 = line.split("\t")
+            out[(int(a), int(b))] = (float(d), float(dp), float(r2))
+    return out
+
+
+def planted_pairs(trips, offset: int = 0) -> set:
+    """The site pairs of planted triplets, at positions index + offset."""
+    out = set()
+    for trip in trips:
+        a, b, c = sorted(int(x) + offset for x in trip)
+        out |= {(a, b), (a, c), (b, c)}
+    return out
+
+
+def phase_ambiguous(tmp: Path) -> tuple[dict, dict]:
+    """The ambiguity-code path at full size; returns the main-path launch
+    counts of the general entries and the max abs errors of the batch
+    checks."""
+    from weightedld_tpu_torch.pipeline import prepare
+    from weightedld_tpu_torch.runtime.driver import (DriverConfig, LdSession,
+                                                     run_to_tsv)
+    from weightedld_tpu_torch.runtime.profiling import StageTimer
+
+    rng = np.random.default_rng(2026)
+    t0 = time.monotonic()
+    aln, trips, dirty = ambiguous_alignment(rng, N_AMB, S_AMB, N_AMB_GROUPS,
+                                            N_DIRTY)
+    fasta = tmp / "ambiguous.fasta"
+    write_fasta_codes(fasta, aln, rng)
+    log(f"[ambiguous] synthetic FASTA {N_AMB} x {S_AMB}, {len(dirty)} "
+        f"ambiguous columns, {len(trips)} planted triplets: "
+        f"{fasta.stat().st_size / 1e6:.1f} MB in {time.monotonic() - t0:.1f}s")
+    planted = planted_pairs(trips)
+    launches, err = {}, {}
+
+    # (1) The CLI: the hybrid session.
+    out1 = tmp / "ambiguous.tsv"
+    timer = StageTimer()
+    t0 = time.monotonic()
+    counts = _drive(["--file", str(fasta), "--r2-threshold", "0.1",
+                     "--ndigits", "8", "--pair-output", str(out1)],
+                    timer=timer)
+    wall = time.monotonic() - t0
+    log(f"[ambiguous] (1) CLI kernel launches: {counts}; wall {wall:.3f}s")
+    for name, sec in timer.spans.items():
+        log(f"[ambiguous] stage {name:<12} {sec:.3f}s")
+    if counts["ld_general"] == 0 or not (counts["ld_majmin_planes"]
+                                         or counts["ld_majmin_codes"]):
+        raise AssertionError("the ambiguous CLI run did not launch both "
+                             "ld_general and a factorized entry")
+    rec1 = read_records(out1)
+    missing = planted - set(rec1)
+    if missing:
+        raise AssertionError(f"{len(missing)} of {len(planted)} planted "
+                             f"pairs missing, e.g. {sorted(missing)[:5]}")
+    n_pairs = S_AMB * (S_AMB - 1) // 2
+    log(f"[ambiguous] (1) {len(rec1)} records, all {len(planted)} planted "
+        f"pairs present; {n_pairs / timer.spans['scan+write']:.4g} pairs/s "
+        f"over scan+write")
+    launches["ld_general"] = counts["ld_general"]
+
+    res = prepare(fasta)
+    s_kept = res.alignment.shape[1]
+    log(f"[ambiguous] post-mask S = {s_kept}")
+    if s_kept != S_AMB:
+        raise AssertionError(f"post-mask S {s_kept} != {S_AMB}")
+    hyb = LdSession(res.alignment, res.weights, res.site_map,
+                    DriverConfig(r2_threshold=0.1), device="cuda")
+    tiles = hyb.phase_tiles
+    log(f"[ambiguous] hybrid split: {tiles['majmin']} safe (factorized) and "
+        f"{tiles['general']} unsafe (general) tile pairs of "
+        f"{hyb.plan.n_tiles}; packed={hyb.site_perm is not None}; "
+        f"batches={hyb.n_batches} {hyb.cfg}")
+    if not tiles["majmin"] or not tiles["general"] or hyb.site_perm is None:
+        raise AssertionError("the ambiguous input did not pack and split")
+    # Both phases must emit records: planted pairs through ambiguous
+    # columns lie in the packed dirty tiles.
+    dirty_pairs = {p for p in planted if set(p) & set(dirty.tolist())}
+    log(f"[ambiguous] {len(dirty_pairs)} planted pairs touch ambiguous "
+        f"columns")
+    name, err["ld_general"] = check_session_batch(
+        hyb, "ambiguous hybrid, general phase", b=hyb.n_batches - 1)
+    if name != "ld_general":
+        raise AssertionError(f"the hybrid session's last batch ran {name}")
+    del hyb
+
+    # (2) The general kernel over the whole triangle, codes and preplaned.
+    out2 = tmp / "ambiguous_general.tsv"
+    _n, counts = _counted(
+        run_to_tsv, res.alignment, res.weights, res.site_map, out2,
+        DriverConfig(kernel="general", r2_threshold=0.1), device="cuda",
+        ndigits=8)
+    log(f"[ambiguous] (2) kernel='general' launches: {counts}")
+    if counts["ld_general"] == 0 or sum(counts.values()) != \
+            counts["ld_general"]:
+        raise AssertionError("kernel='general' must launch ld_general only")
+    rec2 = read_records(out2)
+    if set(rec2) != set(rec1):
+        raise AssertionError(f"record sets differ: {len(rec1)} hybrid vs "
+                             f"{len(rec2)} general")
+    worst = 0.0
+    for key, want in rec2.items():
+        got = np.asarray(rec1[key])
+        want = np.asarray(want)
+        fin = np.isfinite(want)
+        if not np.array_equal(np.isfinite(got), fin) or not np.allclose(
+                got[fin], want[fin], rtol=2e-5, atol=1e-6):
+            raise AssertionError(f"{key}: hybrid {got} vs general {want}")
+        if fin.any():
+            worst = max(worst, float(np.abs(got[fin] - want[fin]).max()))
+    log(f"[ambiguous] (2) record set equal to (1), values within rtol 2e-5 "
+        f"/ atol 1e-6 (max |hybrid - general| {worst})")
+    out2p = tmp / "ambiguous_general_planes.tsv"
+    _n, counts = _counted(
+        run_to_tsv, res.alignment, res.weights, res.site_map, out2p,
+        DriverConfig(kernel="general", preplaned="on", r2_threshold=0.1),
+        device="cuda", ndigits=8)
+    log(f"[ambiguous] (2) kernel='general' preplaned='on' launches: {counts}")
+    if counts["ld_general_planes"] == 0 or sum(counts.values()) != \
+            counts["ld_general_planes"]:
+        raise AssertionError("preplaned general must launch "
+                             "ld_general_planes only")
+    if out2p.read_bytes() != out2.read_bytes():
+        raise AssertionError("the preplaned general TSV differs")
+    log("[ambiguous] (2) preplaned general TSV byte-identical")
+    launches["ld_general_planes"] = counts["ld_general_planes"]
+
+    # (3) The CLI with --unweighted.
+    out3 = tmp / "ambiguous_unweighted.tsv"
+    counts = _drive(["--file", str(fasta), "--r2-threshold", "0.1",
+                     "--unweighted", "--pair-output", str(out3)])
+    log(f"[ambiguous] (3) --unweighted launches: {counts}")
+    if counts["ld_general_unit"] == 0:
+        raise AssertionError("the --unweighted run never launched "
+                             "ld_general_unit")
+    missing = planted - set(read_pairs(out3))
+    if missing:
+        raise AssertionError(f"--unweighted: {len(missing)} planted pairs "
+                             "missing")
+    launches["ld_general_unit"] = counts["ld_general_unit"]
+
+    # (4) CPU vs card on the first AMB_SLICE columns.
+    sl = tmp / "ambiguous_slice.fasta"
+    write_fasta_codes(sl, aln[:, :AMB_SLICE], np.random.default_rng(7))
+    for uw in (False, True):
+        outs, counts = {}, {}
+        for device in ("cpu", "cuda"):
+            out = tmp / f"ambiguous_slice_{device}_{uw}.tsv"
+            t0 = time.monotonic()
+            counts[device] = _drive(
+                ["--file", str(sl), "--device", device, "--engine", "tiled",
+                 "--tile", "256", "--seq-chunk", "256", "--r2-threshold",
+                 "0.03", "--pair-output", str(out)]
+                + (["--unweighted"] if uw else []))
+            outs[device] = out.read_bytes()
+            log(f"[ambiguous] (4) unweighted={uw} {device}: "
+                f"{outs[device].count(b'\n') - 1} records in "
+                f"{time.monotonic() - t0:.2f}s, launches {counts[device]}")
+        general = "ld_general_unit" if uw else "ld_general"
+        if any(counts["cpu"].values()):
+            raise AssertionError(f"the CPU run launched kernels: "
+                                 f"{counts['cpu']}")
+        if counts["cuda"][general] == 0:
+            raise AssertionError(f"the card run never launched {general}")
+        if outs["cpu"] != outs["cuda"]:
+            raise AssertionError(f"unweighted={uw}: CPU and CUDA TSVs differ")
+        log(f"[ambiguous] (4) unweighted={uw}: TSVs byte-identical "
+            f"({len(outs['cuda'])} bytes)")
+
+    # (5) Batch 0 of the kernel="general" session and of its unit twin.
+    for w, label in ((res.weights, "weighted"),
+                     (np.ones_like(res.weights), "unit")):
+        sess = LdSession(res.alignment, w, res.site_map,
+                         DriverConfig(kernel="general", r2_threshold=0.1),
+                         device="cuda")
+        name, e = check_session_batch(sess, f"ambiguous general {label}")
+        err[name] = max(err.get(name, 0.0), e)
+        del sess
+    return launches, err
 
 
 def _scan_seconds(sess) -> float:
@@ -589,17 +956,21 @@ def phase_entries() -> None:
         torch.cuda.empty_cache()
 
 
+DEFAULT_PHASES = ("build", "kernels", "main", "cpu-vs-card", "ambiguous")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,main,cpu-vs-card",
+    ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of build, kernels, main, "
-                    "cpu-vs-card, profile and entries (default: the first "
-                    "four, which the result line needs)")
+                    "cpu-vs-card, ambiguous, profile and entries (default: "
+                    "the first five, which the result line needs)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
-    # The smoke test runs on one card.
-    os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
+    # The smoke test runs on one card: the first of those visible to it.
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0].strip()
+    os.environ["CUDA_VISIBLE_DEVICES"] = first or "0"
     import torch
 
     if not torch.cuda.is_available():
@@ -614,36 +985,61 @@ def main() -> int:
     res = None
     err = dict.fromkeys(KERNELS, 0.0)
     launches = {}
+    t_start = time.monotonic()
+
+    def done(phase: str, t0: float) -> None:
+        log(f"[smoke] phase {phase}: {time.monotonic() - t0:.1f}s "
+            f"(total {time.monotonic() - t_start:.1f}s)")
+
     with tempfile.TemporaryDirectory(prefix="wld_smoke_") as td:
         tmp = Path(td)
         if "build" in phases:
+            t0 = time.monotonic()
             phase_build()
+            done("build", t0)
         if "kernels" in phases:
+            t0 = time.monotonic()
             res = phase_kernels()
             err = res["err"]
+            done("kernels", t0)
         if "main" in phases:
+            t0 = time.monotonic()
             launches, main_err = phase_main(tmp)
             for name, e in main_err.items():
                 err[name] = max(err[name], e)
+            done("main", t0)
         if "cpu-vs-card" in phases:
+            t0 = time.monotonic()
             name, e = phase_cpu_vs_card(tmp)
             err[name] = max(err[name], e)
+            done("cpu-vs-card", t0)
+        if "ambiguous" in phases:
+            t0 = time.monotonic()
+            amb_launches, amb_err = phase_ambiguous(tmp)
+            launches.update(amb_launches)
+            for name, e in amb_err.items():
+                err[name] = max(err[name], e)
+            done("ambiguous", t0)
         if "profile" in phases:
             phase_profile()
         if "entries" in phases:
             phase_entries()
-    if set(phases) != {"build", "kernels", "main", "cpu-vs-card"}:
+    if set(phases) != set(DEFAULT_PHASES):
         log("[smoke] partial run: no result line")
         return 0
     log(f"[smoke] main-path launches: ld_majmin_planes from the headline "
-        f"CLI run, ld_majmin_codes from the headline codes-entry run: "
-        f"{launches}")
+        f"CLI run, ld_majmin_codes from the headline codes-entry run, "
+        f"ld_general from the ambiguous CLI run, ld_general_planes from its "
+        f"preplaned kernel='general' run, ld_general_unit from its "
+        f"--unweighted CLI run: {launches}")
+    missing = [name for name in KERNELS if not launches.get(name)]
+    if missing:
+        raise AssertionError(f"no main-path launch of {missing}")
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": KERNELS[name], "launches": launches[name],
-         "max_abs_err": err[name], "ms": res["ms"][name],
-         "plain_ms": res["plain_ms"][name]}
-        for name in KERNELS]}))
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": err[name],
+         "ms": res["ms"][name], "plain_ms": res["plain_ms"][name]}
+        for name, (replaces, src) in KERNELS.items()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here carries the ``cuda`` marker and skips when
 ``torch.cuda.is_available()`` is False (the decision is made inside a
@@ -7,9 +7,10 @@ it runs on a machine with the card and no JAX:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Inputs are random no-UNKNOWN alignments from numpy seeds; tolerance on
+Inputs are random alignments from numpy seeds, without UNKNOWN codes for
+the factorized kernel and with them for the general kernel; tolerance on
 kept pairs rtol=1e-5, atol=1e-6 with equal ``keep`` and equal non-finite
-patterns (the kernel follows the plain version's operation order, so in
+patterns (the kernels follow the plain versions' operation order, so in
 practice they agree bit for bit).
 """
 
@@ -19,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from weightedld_tpu_torch.ops import cuda_general as G
 from weightedld_tpu_torch.ops import cuda_ld as K
 from weightedld_tpu_torch.parallel.triangle import plan_tiles
 from weightedld_tpu_torch.runtime.driver import (DriverConfig, LdSession,
@@ -137,6 +139,104 @@ def test_session_records_equal_on_cpu_and_card(cuda_device, preplaned):
     runs = {}
     for dev in ("cpu", cuda_device):
         sess = LdSession(aln, w, sm, cfg, device=dev)
+        recs = [r for _b, r in sess.stream()]
+        runs[str(dev)] = [np.concatenate([getattr(r, f) for r in recs])
+                          for f in ("pos_a", "pos_b", "d", "d_prime", "r2")]
+    for a, b in zip(runs["cpu"], runs[str(cuda_device)]):
+        np.testing.assert_array_equal(a, b)
+
+
+# id -> (seed, alphabet, n_seqs, n_sites, tile, seq_chunk, weight mode,
+#        UNKNOWN cell fraction, planes (None = the planes present))
+GENERAL_CASES = {
+    "dna5-int8x3": (1, (0, 1, 2, 3, 4), 150, 300, 48, 64, "int8x3", 0.05,
+                    None),
+    "dna5-int8x3-main": (2, (0, 1, 2, 3, 4), 1000, 600, 256, 1024, "int8x3",
+                         0.01, None),
+    "snp3-unit": (3, (0, 1, 4), 150, 300, 48, 64, "unit", 0.08, None),
+    "bin2-exact": (4, (0, 1), 150, 300, 48, 64, "exact", 0.05, None),
+    "dna4-split": (5, (0, 1, 2, 4), 150, 300, 48, 64, "split_bf16", 0.03,
+                   None),
+    "snp3-int8": (6, (0, 3, 4), 150, 300, 48, 64, "int8", 0.02, None),
+    "ragged-unit": (7, (0, 1, 2, 3, 4), 37, 90, 32, 40, "unit", 0.05, None),
+    "restricted": (8, (0, 1, 2, 3, 4), 333, 257, 64, 120, "int8x3", 0.04,
+                   (0, 2, 4)),
+}
+
+
+def _general_inputs(name: str, device):
+    seed, alphabet, n, s, tile, chunk, mode, unk, planes = GENERAL_CASES[name]
+    rng = np.random.default_rng(seed)
+    aln = rng.choice(alphabet, size=(n, s)).astype(np.int8)
+    aln[rng.random(aln.shape) < unk] = 5
+    if mode == "unit":
+        w = np.ones(n, np.float32)
+    elif mode == "exact":
+        w = ((np.arange(n) % 4 + 1) / 4.0).astype(np.float32)
+    else:
+        w = (rng.random(n) + 0.05).astype(np.float32)
+        w /= w.max()
+    nlev = {"int8": 2, "int8x3": 3}.get(mode, 0)
+    wr = K.pad_weights_int8(w, chunk, levels=nlev) if nlev \
+        else K.pad_weights(w, chunk)
+    plan = plan_tiles(s, tile)
+    emit = np.ones(plan.n_tiles, np.int32)
+    emit[rng.random(plan.n_tiles) < 0.2] = 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    kw = dict(tile=tile, n_sites=s, seq_chunk=chunk,
+              planes=planes or K.detect_planes_unknown(aln)[0],
+              unit_weights=mode == "unit", exact_weights=mode == "exact",
+              wquant=mode if nlev else "")
+    return (t(K.pad_alignment_site_major(aln, tile, chunk)), t(wr),
+            t(plan.tile_i), t(plan.tile_j), t(emit), kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["codes", "pre"])
+@pytest.mark.parametrize("name", list(GENERAL_CASES))
+def test_general_kernel_matches_plain_on_card(cuda_device, name, entry):
+    codes, wr, ti, tj, em, kw = _general_inputs(name, cuda_device)
+    src = codes
+    if entry == "pre":
+        src = G.build_planes_tiled(codes, tile=kw["tile"], planes=kw["planes"])
+        kernel = "ld_general_planes"
+    else:
+        kernel = "ld_general_unit" if kw["unit_weights"] else "ld_general"
+    before = dict(G.launches)
+    got = G.tile_stats_general(src, wr, ti, tj, em, preplaned=entry == "pre",
+                               **kw)
+    ref = G.tile_stats_general_plain(src, wr, ti, tj, em,
+                                     preplaned=entry == "pre", **kw)
+    torch.cuda.synchronize()
+    assert G.launches[kernel] == before[kernel] + 1
+    _assert_match(got, ref)
+
+
+def _scattered_alignment(rng, n_seqs, n_sites, n_dirty):
+    """Near-balanced sites with 1-2 UNKNOWN cells at ``n_dirty`` sites."""
+    aln = rng.choice((0, 1, 2, 3, 4), size=(n_seqs, n_sites)).astype(np.int8)
+    for s in rng.choice(n_sites, size=n_dirty, replace=False):
+        aln[rng.choice(n_seqs, size=rng.integers(1, 3), replace=False), s] = 5
+    return aln
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,unit", [("auto", False), ("auto", True),
+                                         ("general", False)])
+def test_hybrid_session_records_equal_on_cpu_and_card(cuda_device, kernel,
+                                                      unit):
+    rng = np.random.default_rng(13)
+    aln = _scattered_alignment(rng, 200, 700, 20)
+    w = np.ones(200, np.float32) if unit \
+        else (rng.random(200) + 0.05).astype(np.float32)
+    cfg = DriverConfig(tile=128, seq_chunk=64, kernel=kernel)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        sess = LdSession(aln, w, np.arange(700) * 2, cfg, device=dev)
+        if kernel == "auto":
+            assert sess.site_perm is not None
+            assert sess.phase_tiles["majmin"] > 0
+        assert sess.phase_tiles["general"] > 0
         recs = [r for _b, r in sess.stream()]
         runs[str(dev)] = [np.concatenate([getattr(r, f) for r in recs])
                           for f in ("pos_a", "pos_b", "d", "d_prime", "r2")]

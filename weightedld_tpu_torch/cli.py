@@ -4,7 +4,10 @@
 
 The main-path dispatch of ``weightedld_tpu/cli.py``: ingest, masks and
 Henikoff weights on the host, then the dense engine (S <= 2048 by default)
-or the tiled session with the factorized CUDA kernel, and the 4-dp TSV.
+or the tiled session with the CUDA kernels, and the 4-dp TSV.  Both engines
+take any input, FASTA with ambiguity characters included: the tiled session
+runs the factorized kernel wherever it is exact and the general kernel on
+the tile pairs whose UNKNOWN codes it does not cover.
 Supported flags: ``--file``, ``--min-acgt``, ``--min-variability``,
 ``--unweighted``, ``--r2-threshold``, ``--pair-output``, ``--engine
 {auto,dense,tiled}``, ``--tile``, ``--seq-chunk``, ``--tiles-per-batch``,
@@ -77,8 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine", choices=("auto", "dense", "tiled"),
                    default="auto",
                    help="dense: one all-pairs program (small S); tiled: "
-                   "batched tile session with the CUDA kernel [default "
-                   "auto: dense for S <= 2048]")
+                   "batched tile session with the CUDA kernels, for any "
+                   "input including ambiguity codes [default auto: dense "
+                   "for S <= 2048]")
     p.add_argument("--tile", type=int, default=None,
                    help="site-tile side of the tiled engine (default 256)")
     p.add_argument("--seq-chunk", type=int, default=None,

@@ -155,6 +155,42 @@ def majmin_safe_with_unknown(alignment: np.ndarray | None,
     return bool(safe.all())
 
 
+_MARGIN_INF = np.int64(1) << 62
+
+
+def majmin_site_margins(counts: np.ndarray, n_seqs: int,
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """Per-site ``(stability margin, UNKNOWN count)``: with descending
+    counts c1 >= c2 >= c3, the margin is ``min(c1 - c2, c2 - c3)``, or
+    ``_MARGIN_INF`` for a monomorphic site (copy of ``pallas_ld.py:
+    1356-1369``).  Sites with UNKNOWN count ``u > 0`` are the only ones that
+    can make a partner tile pair unsafe for the factorized kernel."""
+    counts = counts.astype(np.int64)
+    u = n_seqs - counts.sum(axis=1)
+    top = np.sort(counts, axis=1)[:, ::-1]
+    c1, c2, c3 = top[:, 0], top[:, 1], top[:, 2]
+    margin = np.where(c2 == 0, _MARGIN_INF, np.minimum(c1 - c2, c2 - c3))
+    return margin, u
+
+
+def majmin_tile_margins(counts: np.ndarray, n_seqs: int, tile: int,
+                        grid: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-site-tile ``(min margin, max UNKNOWN count)`` over each tile's
+    real sites, ``[grid]`` int64 each; padded sites carry margin
+    ``_MARGIN_INF`` and u = 0 (copy of ``pallas_ld.py:1313-1353``).  The
+    tile pair (Ti, Tj) is factorized-exact iff ``(umax[Tj] == 0 or
+    stab[Ti] > umax[Tj]) and (umax[Ti] == 0 or stab[Tj] > umax[Ti])``."""
+    margin, u = majmin_site_margins(counts, n_seqs)
+    s = counts.shape[0]
+    s_pad = grid * tile
+    mpad = np.full(s_pad, _MARGIN_INF, dtype=np.int64)
+    mpad[:s] = margin
+    upad = np.zeros(s_pad, dtype=np.int64)
+    upad[:s] = u
+    return (mpad.reshape(grid, tile).min(axis=1),
+            upad.reshape(grid, tile).max(axis=1))
+
+
 def majmin_site_aux(alignment: np.ndarray | None, s_pad: int,
                     counts: np.ndarray | None = None,
                     ) -> tuple[np.ndarray, np.ndarray]:
@@ -332,9 +368,18 @@ def _finalize_plain(acc, dist_a, dist_b, tile_i, tile_j, emit, tile,
                     n_sites) -> PairStats:
     t = tile
     keep = (dist_a[:, :, None] > 1) & (dist_b[:, None, :] > 1)
-    d, dp, r2, keep = pair_algebra(acc[:, :t, :t], acc[:, :t, t:],
-                                   acc[:, t:, :t], acc[:, t:, t:], keep)
-    ar = torch.arange(t, device=acc.device, dtype=torch.int64)
+    return finalize_cells(acc[:, :t, :t], acc[:, :t, t:], acc[:, t:, :t],
+                          acc[:, t:, t:], keep, tile_i, tile_j, emit, tile,
+                          n_sites)
+
+
+def finalize_cells(n_mm, n_md, n_dm, n_dd, keep, tile_i, tile_j, emit, tile,
+                   n_sites) -> PairStats:
+    """The pair algebra on ``[K, T, T]`` cells, then the strict upper
+    triangle of true sites and the emit flag (``pallas_ld.py:550-560``)."""
+    t = tile
+    d, dp, r2, keep = pair_algebra(n_mm, n_md, n_dm, n_dd, keep)
+    ar = torch.arange(t, device=n_mm.device, dtype=torch.int64)
     gi = tile_i.to(torch.int64)[:, None, None] * t + ar[None, :, None]
     gj = tile_j.to(torch.int64)[:, None, None] * t + ar[None, None, :]
     keep = keep & (gi < gj) & (gj < n_sites) & (emit[:, None, None] != 0)
@@ -430,7 +475,8 @@ def _check_common(weights, auxc, tile_i, tile_j, emit, *, s_pad, n_pad,
     if not 0 <= n_sites <= s_pad:
         raise ValueError(f"n_sites={n_sites} outside [0, S_pad={s_pad}]")
     _check("weights", weights, torch.float32, (None, n_pad), device)
-    _check("auxc", auxc, torch.int32, (s_pad, 3), device)
+    if auxc is not None:            # the general kernel takes no aux
+        _check("auxc", auxc, torch.int32, (s_pad, 3), device)
     k = tile_i.shape[0] if isinstance(tile_i, torch.Tensor) else -1
     for nm, t in (("tile_i", tile_i), ("tile_j", tile_j), ("emit", emit)):
         _check(nm, t, torch.int32, (k,), device)

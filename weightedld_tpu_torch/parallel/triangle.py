@@ -1,11 +1,11 @@
 """Site-pair upper-triangle tiling and striping (numpy).
 
-Copies of ``cdiv``, ``TilePlan``, ``plan_tiles`` (all-pairs branch only) and
-``stripe`` from ``weightedld_tpu/parallel/triangle.py:23-109, 211-233``.  The
-S x S site-pair triangle is cut into square tiles of side ``tile``,
-enumerated row-major host-side (~S^2 / 2T^2 entries); ``stripe`` lays the
-list out shard-major with non-emitting padding tiles.  With one shard the
-stripe is the plan order, which fixes the order records are emitted in.
+Copies of ``cdiv``, ``TilePlan`` and ``plan_tiles`` (all-pairs branch only)
+from ``weightedld_tpu/parallel/triangle.py:23-109``.  The S x S site-pair
+triangle is cut into square tiles of side ``tile``, enumerated row-major
+host-side (~S^2 / 2T^2 entries).  On one device the JAX ``stripe`` is the
+identity on this order, which fixes the order records are emitted in; it
+is not ported.
 """
 
 from __future__ import annotations
@@ -49,27 +49,3 @@ def plan_tiles(n_sites: int, tile: int = 128) -> TilePlan:
     ti, tj = np.triu_indices(grid)
     return TilePlan(n_sites=n_sites, tile=tile, s_pad=s_pad, grid=grid,
                     tile_i=ti.astype(np.int32), tile_j=tj.astype(np.int32))
-
-
-def stripe(plan: TilePlan, n_shards: int
-           ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Stripe tiles across shards: shard d owns tiles d, d+n, d+2n, ...
-
-    Returns ``(tile_i, tile_j, emit)`` of shape ``[n_shards * per_shard]``,
-    shard-major, padded with non-emitting duplicate tiles so every shard has
-    equal work.
-    """
-    n = plan.n_tiles
-    per_shard = cdiv(n, n_shards)
-    total = per_shard * n_shards
-    idx = np.arange(total)
-    shard = idx // per_shard
-    pos = idx % per_shard
-    src = shard + pos * n_shards
-    emit = src < n
-    src = np.minimum(src, n - 1)
-    return (
-        plan.tile_i[src].astype(np.int32),
-        plan.tile_j[src].astype(np.int32),
-        emit,
-    )

@@ -1,25 +1,37 @@
 """All-pairs LD driver on one device: batches of triangle tiles -> records.
 
 Counterpart of a subset of ``weightedld_tpu/runtime/driver.py``:
-``DriverConfig`` (the fields this slice uses), ``LdSession`` (the
-factorized-kernel decisions of ``driver.py:364-411`` and ``:666-785``,
-batch dispatch with the keep / threshold / moments step of
-``parallel/sharded.py:154-218`` minus the window and cross masks,
-``summarize`` and ``stream``), ``stream_ld_records`` and ``run_to_tsv``
-without a checkpoint.
+``DriverConfig`` (the fields this port uses), ``LdSession`` (the kernel
+decisions of ``driver.py:364-411``, the non-windowed unsafe-site packing of
+``:412-487``, the hybrid safe/unsafe tile-pair split of ``:575-604`` and
+the two-phase plan of ``:830-886``; batch dispatch with the keep /
+threshold / moments step of ``parallel/sharded.py:154-218`` minus the
+window and cross masks; ``summarize`` and ``stream``),
+``stream_ld_records`` and ``run_to_tsv`` without a checkpoint.
+
+Which kernel runs (``ops/cuda_ld.py``, factorized; ``ops/cuda_general.py``,
+general per-pair):
+
+* no UNKNOWN code anywhere (every VCF matrix, FASTA without ambiguity
+  characters), or UNKNOWNs whose per-site count margins absorb the worst
+  per-pair removals: the factorized kernel over the whole triangle;
+* otherwise the UNKNOWN-carrying sites are packed into the trailing tiles
+  and the plan splits by tile pair: phase 0, the tile pairs whose margins
+  make the factorized kernel exact, then phase 1, the rest, on the general
+  kernel (all of the triangle when no tile pair is safe);
+* ``kernel="general"``: the general kernel over the whole triangle.
 
 A session uploads the padded site-major codes, the packed weights, the
-per-site aux and the tile plan once; each batch then runs the factorized
-kernel (:mod:`..ops.cuda_ld`), thresholds, and compacts its records on the
-device.  Records stream in plan order — tile order, then (row, col) inside
-a tile — as the JAX session on one device emits them.
+per-site aux and the tile plan once; each batch then runs one kernel
+launch, thresholds, and compacts its records on the device.  Records stream
+in plan order — phase 0, then phase 1; tile order, then (row, col) inside a
+tile — as the JAX session on one device emits them, with the packing
+permutation folded back into each record's endpoints.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-inputs the factorized kernel cannot take (UNKNOWN codes whose per-site
-margins fail ``majmin_safe_with_unknown``), on-device Henikoff weights
-(``weights=None``) and ``weight_quant='lo_int8'``.  Windows, cross plans,
-analytics, checkpoints, streaming ingest and multiple devices are not in
-``DriverConfig`` at all.
+on-device Henikoff weights (``weights=None``) and
+``weight_quant='lo_int8'``.  Windows, cross plans, analytics, checkpoints,
+streaming ingest and multiple devices are not in ``DriverConfig`` at all.
 """
 
 from __future__ import annotations
@@ -35,21 +47,31 @@ import torch
 
 from ..core.ld_dense import LdRecords
 from ..core.ld_tiled import compact_tile_stats
+from ..core.sites import site_histogram_host
 from ..device import resolve_device
+from ..ops.cuda_general import (
+    build_planes_tiled,
+    tile_stats_general,
+    tile_stats_general_plain,
+)
 from ..ops.cuda_ld import (
     build_majmin_planes,
     build_majmin_xq,
     detect_planes_unknown,
     majmin_safe_with_unknown,
     majmin_site_aux,
+    majmin_site_margins,
+    majmin_tile_margins,
     pad_alignment_site_major,
     pad_weights,
     pad_weights_int8,
     tile_stats_majmin,
+    tile_stats_majmin_plain,
     tile_stats_majmin_pre,
+    tile_stats_majmin_pre_plain,
     weights_bf16_exact,
 )
-from ..parallel.triangle import cdiv, plan_tiles, stripe
+from ..parallel.triangle import cdiv, plan_tiles
 
 log = logging.getLogger("weightedld_tpu_torch")
 
@@ -82,8 +104,31 @@ class DriverConfig:
                                     # the int8x3 cascade (full accuracy) |
                                     # "split_bf16" | "int8" (lossy);
                                     # "lo_int8" is not ported
-    preplaned: str = "auto"         # "auto" | "on" | "off": precomputed
-                                    # maj/dmin (+ xq) planes for the kernel
+    preplaned: str = "auto"         # "auto": precomputed maj/dmin (+ xq)
+                                    # planes for the factorized kernel when
+                                    # they fit (plane_budget) | "on": planes
+                                    # for every kernel the session runs,
+                                    # the general kernel's one-hot planes
+                                    # included | "off": codes only
+    kernel: str = "auto"            # "auto": the factorized kernel (or the
+                                    # hybrid tile-pair split) wherever
+                                    # exactness is proven | "general": the
+                                    # general per-pair kernel everywhere
+
+
+@dataclass(frozen=True)
+class _Phase:
+    """One kernel's share of the plan, uploaded once: ``kernel`` is
+    ``"majmin"`` or ``"general"``, ``n_tiles`` its real tile pairs, ``k``
+    its tiles per batch."""
+
+    kernel: str
+    n_tiles: int
+    k: int
+    n_batches: int
+    tile_i: torch.Tensor
+    tile_j: torch.Tensor
+    emit: torch.Tensor
 
 
 def resolve_tile(tile: int | None) -> int:
@@ -146,6 +191,29 @@ def plane_budget(device: torch.device) -> int:
     return free // 2
 
 
+def packing_permutation(site_counts: np.ndarray,
+                        n_seqs: int) -> np.ndarray | None:
+    """The non-windowed unsafe-site packing (``driver.py:457-487``): clean
+    sites (no UNKNOWN cell) by descending stability margin, then dirty
+    sites by ascending UNKNOWN count, both stable; None when every site or
+    no site is dirty, or the order does not change.  Dirty sites are the
+    only ones that can make a tile pair unsafe for the factorized kernel,
+    so packing them into the trailing tiles leaves every clean x clean tile
+    pair — the bulk of the triangle — on the factorized kernel, and the
+    weakest-margin clean sites in as few tiles as possible."""
+    margin, u = majmin_site_margins(site_counts, n_seqs)
+    bad = u > 0
+    if not bad.any() or bad.all():
+        return None
+    clean = np.flatnonzero(~bad)
+    dirty = np.flatnonzero(bad)
+    perm = np.concatenate([clean[np.argsort(-margin[clean], kind="stable")],
+                           dirty[np.argsort(u[dirty], kind="stable")]])
+    if np.array_equal(perm, np.arange(len(perm))):
+        return None
+    return perm
+
+
 class LdSession:
     """Device-resident all-pairs LD session on one device.
 
@@ -178,25 +246,33 @@ class LdSession:
         if cfg.preplaned not in ("auto", "on", "off"):
             raise ValueError(
                 f"preplaned must be auto|on|off, got {cfg.preplaned!r}")
+        if cfg.kernel not in ("auto", "general"):
+            raise ValueError(
+                f"kernel must be 'auto' or 'general', got {cfg.kernel!r}")
 
-        # No UNKNOWN anywhere (every VCF matrix; clean FASTA): per-pair
-        # major/dmin are per-site properties and the factorized kernel is
-        # exact.  With UNKNOWNs it still is when every site's count margins
-        # absorb the worst per-pair removals.
+        # No UNKNOWN anywhere: per-pair major/dmin are per-site properties
+        # and the factorized kernel is exact.  With UNKNOWNs it still is
+        # when every site's count margins absorb the worst per-pair
+        # removals.  kernel="general" skips the factorized selection.
+        self.planes, has_unknown = detect_planes_unknown(alignment)
+        majmin = False
         site_counts = None
-        _planes, has_unknown = detect_planes_unknown(alignment)
-        if has_unknown:
-            from ..core.sites import site_histogram_host
-
-            site_counts = site_histogram_host(alignment)
-            if not majmin_safe_with_unknown(alignment, site_counts,
-                                            n_seqs=self.n_seqs):
-                raise NotImplementedError(
-                    "this input has UNKNOWN codes whose per-site margins do "
-                    "not make the factorized kernel exact; the general "
-                    "P-plane kernel and the hybrid split are not ported to "
-                    "weightedld_tpu_torch yet (ROADMAP queue 1 item 6, "
-                    "queue 2 item 3)")
+        if cfg.kernel == "auto":
+            if not has_unknown:
+                majmin = True
+            else:
+                site_counts = site_histogram_host(alignment)
+                majmin = majmin_safe_with_unknown(alignment, site_counts,
+                                                  n_seqs=self.n_seqs)
+        site_map = np.asarray(site_map)
+        self.site_perm = None
+        if not majmin and site_counts is not None:
+            perm = packing_permutation(site_counts, self.n_seqs)
+            if perm is not None:
+                alignment = alignment[:, perm]
+                site_map = site_map[perm]
+                site_counts = site_counts[perm]
+                self.site_perm = perm
 
         tile = resolve_tile(cfg.tile)
         seq_chunk = resolve_seq_chunk(cfg.seq_chunk, self.n_seqs)
@@ -207,7 +283,30 @@ class LdSession:
         cfg = replace(cfg, tile=tile, seq_chunk=seq_chunk,
                       tiles_per_shard_batch=k)
         self.cfg = cfg
-        self.site_map = np.asarray(site_map)
+        self.site_map = site_map
+
+        # The hybrid split: a tile pair is factorized-exact when each side's
+        # margins absorb the other side's UNKNOWN counts
+        # (majmin_tile_margins); clean x clean tile pairs always are.
+        self.hybrid_safe = None
+        if not majmin and site_counts is not None:
+            stab, umax = majmin_tile_margins(site_counts, self.n_seqs, tile,
+                                             self.plan.grid)
+            pti, ptj = self.plan.tile_i, self.plan.tile_j
+            safe = (((umax[ptj] == 0) | (stab[pti] > umax[ptj]))
+                    & ((umax[pti] == 0) | (stab[ptj] > umax[pti])))
+            if safe.all():
+                majmin = True  # weaker than the global test, still exact
+            elif safe.any():
+                self.hybrid_safe = safe
+        if majmin:
+            parts = [("majmin", np.ones(self.plan.n_tiles, bool))]
+        elif self.hybrid_safe is not None:
+            parts = [("majmin", self.hybrid_safe),
+                     ("general", ~self.hybrid_safe)]
+        else:
+            parts = [("general", np.ones(self.plan.n_tiles, bool))]
+        kernels = {kern for kern, _sel in parts}
 
         w_arr = np.asarray(weights, dtype=np.float32)
         exact = weights_bf16_exact(w_arr)
@@ -222,81 +321,142 @@ class LdSession:
             wquant = cfg.weight_quant
         nlev = {"int8": 2, "int8x3": 3}.get(wquant, 0)
         n_pad = cdiv(self.n_seqs, seq_chunk) * seq_chunk
-        plane_bytes = (1 + nlev) * 2 * self.plan.s_pad * n_pad
-        self._preplaned = cfg.preplaned == "on" or (
-            cfg.preplaned == "auto"
-            and plane_bytes <= plane_budget(self.device))
-        # Keyword arguments of every kernel call of this session.
+        s_pad = self.plan.s_pad
+        # Preplaned factorized planes: the JAX session never preplanes a
+        # hybrid phase 0 (driver.py:709), but both factorized entries give
+        # the same bits, so phase 0 takes the planes whenever they fit, as
+        # a pure factorized session does.  The general kernel's one-hot
+        # planes only under "on": JAX never selects them (measured neutral
+        # on the TPU, pallas_ld.py:40-41), and the codes are read anyway.
+        mm_bytes = (1 + nlev) * 2 * s_pad * n_pad
+        self._preplaned = "majmin" in kernels and (
+            cfg.preplaned == "on" or (
+                cfg.preplaned == "auto"
+                and mm_bytes <= plane_budget(self.device)))
+        self.general_preplaned = "general" in kernels and cfg.preplaned == "on"
+        # Keyword arguments of every factorized kernel call of this session;
+        # the general kernel adds its planes.
         self.kernel_kw = dict(tile=tile, n_sites=self.n_sites,
                               seq_chunk=seq_chunk, exact_weights=exact,
                               unit_weights=unit, wquant=wquant)
+        self.general_kw = dict(self.kernel_kw, planes=self.planes,
+                               preplaned=self.general_preplaned)
 
         if nlev:
             weights_host = pad_weights_int8(w_arr, seq_chunk, levels=nlev)
         else:
             weights_host = pad_weights(w_arr, seq_chunk)
-        auxc, _auxr = majmin_site_aux(alignment, self.plan.s_pad,
-                                      counts=site_counts)
         codes_host = pad_alignment_site_major(alignment, tile, seq_chunk)
         dev = self.device
         self.weights = w_arr
         self.weights_dev = torch.from_numpy(weights_host).to(dev)
-        self.auxc_dev = torch.from_numpy(auxc).to(dev)
         codes_dev = torch.from_numpy(codes_host).to(dev)
-        self.codes_dev = self.planes_dev = self.xq_dev = None
+        self.auxc_dev = None
+        if "majmin" in kernels:
+            auxc, _auxr = majmin_site_aux(alignment, s_pad,
+                                          counts=site_counts)
+            self.auxc_dev = torch.from_numpy(auxc).to(dev)
+        self.planes_dev = self.xq_dev = self.gplanes_dev = None
         if self._preplaned:
             self.planes_dev = build_majmin_planes(codes_dev, self.auxc_dev,
                                                   tile=tile)
             if nlev:
                 self.xq_dev = build_majmin_xq(self.planes_dev,
                                               self.weights_dev, nlev)
-        else:
-            self.codes_dev = codes_dev
+        if self.general_preplaned:
+            self.gplanes_dev = build_planes_tiled(codes_dev, tile=tile,
+                                                  planes=self.planes)
+        needs_codes = (("majmin" in kernels and not self._preplaned)
+                       or ("general" in kernels
+                           and not self.general_preplaned))
+        self.codes_dev = codes_dev if needs_codes else None
         del codes_dev
 
-        # One shard: the stripe is the plan order.  Pad to whole batches
-        # with non-emitting tiles, upload once, address batches by slice.
-        tile_i, tile_j, emit = stripe(self.plan, 1)
-        self.n_batches = cdiv(len(tile_i), k)
-        total = self.n_batches * k
-        ti = np.zeros(total, np.int32)
-        tj = np.zeros(total, np.int32)
-        em = np.zeros(total, np.int32)
-        ti[:len(tile_i)] = tile_i
-        tj[:len(tile_j)] = tile_j
-        em[:len(emit)] = emit
-        self.ti_dev = torch.from_numpy(ti).to(dev)
-        self.tj_dev = torch.from_numpy(tj).to(dev)
-        self.em_dev = torch.from_numpy(em).to(dev)
+        # Each phase's tile pairs in plan order (JAX's one-shard stripe),
+        # padded to whole batches with non-emitting tiles and uploaded
+        # once; batches are addressed by slice.  The general
+        # phase of a hybrid plan is usually small: its batches are no
+        # larger than it (JAX buckets that size in powers of 4 to bound its
+        # compiled shapes; nothing is compiled per shape here).
+        self._phases = []
+        for kern, sel in parts:
+            ti_p = self.plan.tile_i[sel]
+            tj_p = self.plan.tile_j[sel]
+            k_p = k if len(parts) == 1 or kern == "majmin" \
+                else max(1, min(k, len(ti_p)))
+            nb = cdiv(len(ti_p), k_p)
+            total = nb * k_p
+            ti = np.zeros(total, np.int32)
+            tj = np.zeros(total, np.int32)
+            em = np.zeros(total, np.int32)
+            ti[:len(ti_p)] = ti_p
+            tj[:len(tj_p)] = tj_p
+            em[:len(ti_p)] = 1
+            self._phases.append(_Phase(
+                kernel=kern, n_tiles=len(ti_p), k=k_p, n_batches=nb,
+                tile_i=torch.from_numpy(ti).to(dev),
+                tile_j=torch.from_numpy(tj).to(dev),
+                emit=torch.from_numpy(em).to(dev)))
+        self.n_batches = sum(ph.n_batches for ph in self._phases)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)  # set-up time ends with its work
 
     @property
     def preplaned(self) -> bool:
-        """Whether the session runs the preplaned kernel entry point."""
+        """Whether the factorized kernel runs its preplaned entry point."""
         return self._preplaned
 
     @property
     def operands(self) -> tuple[torch.Tensor, ...]:
-        """The kernel's leading arguments: ``(planes, xq)`` for the preplaned
-        entry, ``(codes,)`` for the codes entry."""
+        """The factorized kernel's leading arguments: ``(planes, xq)`` for
+        the preplaned entry, ``(codes,)`` for the codes entry."""
         if self._preplaned:
             return self.planes_dev, self.xq_dev
         return (self.codes_dev,)
 
+    @property
+    def phase_tiles(self) -> dict[str, int]:
+        """Real tile pairs per kernel: ``{"majmin": n, "general": m}``."""
+        out = {"majmin": 0, "general": 0}
+        for ph in self._phases:
+            out[ph.kernel] += ph.n_tiles
+        return out
+
+    def _locate(self, b: int) -> tuple[_Phase, int]:
+        for ph in self._phases:
+            if b < ph.n_batches:
+                return ph, b
+            b -= ph.n_batches
+        raise IndexError(f"batch {b} out of range")
+
     def batch_tiles(self, b: int) -> tuple[torch.Tensor, ...]:
         """``(tile_i, tile_j, emit)`` of batch ``b``, on the device."""
-        k = self.cfg.tiles_per_shard_batch
-        sl = slice(b * k, (b + 1) * k)
-        return self.ti_dev[sl], self.tj_dev[sl], self.em_dev[sl]
+        ph, lb = self._locate(b)
+        sl = slice(lb * ph.k, (lb + 1) * ph.k)
+        return ph.tile_i[sl], ph.tile_j[sl], ph.emit[sl]
+
+    def batch_kernel(self, b: int):
+        """``(wrapper, plain version, leading arguments, keywords)`` of the
+        kernel that runs batch ``b``: ``wrapper(*args, tile_i, tile_j, emit,
+        **kw)`` computes its stats."""
+        ph, _lb = self._locate(b)
+        if ph.kernel == "general":
+            src = self.gplanes_dev if self.general_preplaned \
+                else self.codes_dev
+            return (tile_stats_general, tile_stats_general_plain,
+                    (src, self.weights_dev), self.general_kw)
+        if self._preplaned:
+            fn, plain = tile_stats_majmin_pre, tile_stats_majmin_pre_plain
+        else:
+            fn, plain = tile_stats_majmin, tile_stats_majmin_plain
+        return (fn, plain, (*self.operands, self.weights_dev, self.auxc_dev),
+                self.kernel_kw)
 
     def _dispatch(self, b: int):
         """Run batch ``b``: ``(PairStats [K, T, T], tile_i, tile_j)``."""
         ti, tj, em = self.batch_tiles(b)
-        fn = tile_stats_majmin_pre if self._preplaned else tile_stats_majmin
-        st = fn(*self.operands, self.weights_dev, self.auxc_dev, ti, tj, em,
-                **self.kernel_kw)
-        return st, ti, tj
+        fn, _plain, args, kw = self.batch_kernel(b)
+        return fn(*args, ti, tj, em, **kw), ti, tj
 
     def _threshold(self, r2_threshold) -> float:
         thr = self.cfg.r2_threshold if r2_threshold is _UNSET \
@@ -329,6 +489,20 @@ class LdSession:
             "r2_max": r2_max if n_pairs else None,
         }
 
+    def _fold(self, sites: np.ndarray) -> np.ndarray:
+        """Internal ``[n, 2]`` site pairs -> endpoints in the caller's site
+        order (``driver.py:1180-1190``): under packing internal i < j no
+        longer implies original order, so swap the endpoints back to the
+        reference's (earlier site, later site); D, D' and r2 are symmetric
+        under the swap."""
+        if self.site_perm is None or not len(sites):
+            return sites
+        oi = self.site_perm[sites[:, 0]]
+        oj = self.site_perm[sites[:, 1]]
+        flip = oi > oj
+        return np.stack([np.where(flip, sites[:, 1], sites[:, 0]),
+                         np.where(flip, sites[:, 0], sites[:, 1])], axis=1)
+
     def stream(self, start_batch: int = 0, r2_threshold=_UNSET,
                ) -> Iterator[tuple[int, LdRecords]]:
         """Yield ``(batch_index, records)`` batch by batch; records carry
@@ -339,7 +513,7 @@ class LdSession:
         for b in range(start_batch, self.n_batches):
             st, ti, tj = self._dispatch(b)
             _n, sites, values = compact_tile_stats(st, ti, tj, thr, tile=t)
-            sites_h = sites.cpu().numpy()
+            sites_h = self._fold(sites.cpu().numpy())
             vals_h = values.cpu().numpy()
             yield b, LdRecords(
                 pos_a=self.site_map[sites_h[:, 0]],
@@ -372,10 +546,13 @@ def run_to_tsv(alignment: np.ndarray, weights: np.ndarray,
     timer = timer or StageTimer()
     with timer.stage("upload"):
         session = LdSession(alignment, weights, site_map, cfg, device)
+    tiles = session.phase_tiles
     log.info("tiled session: T=%d seq_chunk=%d tiles/batch=%d batches=%d "
-             "preplaned=%s", session.cfg.tile, session.cfg.seq_chunk,
+             "preplaned=%s factorized tile pairs=%d general tile pairs=%d "
+             "packed=%s", session.cfg.tile, session.cfg.seq_chunk,
              session.cfg.tiles_per_shard_batch, session.n_batches,
-             session.preplaned)
+             session.preplaned, tiles["majmin"], tiles["general"],
+             session.site_perm is not None)
     n_written = 0
     t0 = time.monotonic()
     with open_text_output(out_path) as fh, timer.stage("scan+write"):
