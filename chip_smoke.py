@@ -15,10 +15,11 @@ result line):
              and unit) on alignments with 1-10 % UNKNOWN cells and P = 2..5
              planes, a restricted ``planes`` tuple among them (ragged S and
              N, several seq chunks, emit=0 tiles, int8x3 / int8 / unit /
-             bf16-exact / split_bf16 weights); then each kernel's and its
-             plain version's time on the full tile plan of N=1,000 x
-             S=8,192 (the general kernels at P = 5 with 1 % UNKNOWN sites),
-             whose outputs are held against each other.
+             bf16-exact / split_bf16 / lo_int8 weights); then each kernel's
+             and its plain version's time on the full tile plan of N=1,000
+             x S=8,192 (the general kernels at P = 5 with 1 % UNKNOWN
+             sites; each weighted entry in int8x3 and in lo_int8), whose
+             outputs are held against each other, beside its bound.
 3. main    — the CLI in-process on a synthetic VCF at the headline shape
              (1,000 haplotypes x 49,152 sites, the loaded distribution with
              3,400 planted site triplets), ``--r2-threshold 0.1``: every
@@ -34,7 +35,24 @@ result line):
              seq chunks): the two TSVs must be byte-identical, the card run
              must launch a kernel and the CPU run none; then the session's
              batch, kernel against plain.
-5. ambiguous — the ambiguity-code path at full size: a synthetic FASTA of
+5. analytics — the analytics methods of one session on the headline
+             input the main phase prepared, held against the main phase's
+             records: ``summarize`` (n_over_threshold = the record count),
+             ``r2_histogram`` (bins sum to n_pairs), ``ld_decay`` (counts
+             sum to n_pairs), ``top_pairs(1000)`` (no other record is
+             stronger), ``prune(0.1)`` (no record joins two kept sites);
+             ``matrices`` of an S = 8,192 slice, float32 and float16,
+             against a stream's records; the CLI's ``--r2-hist``,
+             ``--ld-decay``, ``--top 1000`` and ``--prune-r2 0.1`` on that
+             slice against the same session's methods, and its
+             ``--matrix-output --matrix-dtype float16`` on a 2,048-site
+             slice against the method; then lo_int8: the CLI's ``--stats-only --weight-quant
+             lo_int8`` (the preplaned entry; counts equal int8x3's) and
+             ``run_to_tsv(preplaned="off", weight_quant="lo_int8")`` (the
+             codes entry, held to int8x3 at rtol 2e-5 / atol 1e-6), and
+             one full batch of each lo_int8 headline session (preplaned
+             and codes entry), kernel against plain.
+6. ambiguous — the ambiguity-code path at full size: a synthetic FASTA of
              1,024 sequences x 16,384 columns over A C G T - with 1-2
              ambiguity characters (N R Y) at 1 % of the columns and planted
              correlated column triplets, some through ambiguous columns.
@@ -45,27 +63,38 @@ result line):
              same record set with values within rtol 2e-5 / atol 1e-6 (the
              packing flips some pairs' in-kernel orientation), and with
              ``preplaned="on"`` only ``ld_general_planes`` and the same
-             bytes; (3) the CLI with ``--unweighted``: ``ld_general_unit``;
+             bytes; (2b) lo_int8 through the CLI (``ld_general`` in lo_int8
+             on the hybrid's general phase) and ``run_to_tsv(kernel=
+             "general", preplaned="on", weight_quant="lo_int8")``, each
+             held to its int8x3 twin at rtol 2e-5 / atol 1e-6 with every
+             planted pair; (3) the CLI with ``--unweighted``:
+             ``ld_general_unit``;
              (4) CPU vs card on the first 4,096 columns, ``--tile 256
              --seq-chunk 256 --r2-threshold 0.03``, weighted and
              unweighted: byte-identical TSVs,
-             general kernels on the card and no launch on the CPU; (5) the
-             general batch of the CLI's hybrid session, and batch 0 of the
-             ``kernel="general"`` session and of its unit twin, kernel
-             against plain.
+             general kernels on the card and no launch on the CPU; (5)
+             kernel against plain: the general batch of the CLI's hybrid
+             session and of its lo_int8 twin, and batch 0 of the
+             ``kernel="general"`` session, of its unit twin and of its
+             preplaned lo_int8 twin.
 
-Not in the default run: ``--phases profile`` times the headline scan and
-breaks one scan down by device kernel with torch.profiler; ``--phases
-entries`` times the two factorized entry points over whole sessions at
-several N and S, interleaved.
+Not in the default run: ``--phases profile`` times the headline
+session's ``stream`` and ``summarize`` scans interleaved, one batch's
+top-k selection with and without the tile-max prefilter, and breaks one
+scan down by device kernel with torch.profiler; ``--phases entries`` times
+the two factorized entry points over whole sessions at several N and S,
+interleaved; ``--phases yardstick`` times ``torch._int_mm`` over the
+factorized kernel's int8 contraction.
 
 The launch counters are zeroed just before each run of the main path and
 read just after it; the kernels line reports ``ld_majmin_planes`` from the
 headline CLI run, ``ld_majmin_codes`` from the headline codes-entry run,
 ``ld_general`` from the ambiguous CLI run, ``ld_general_planes`` from its
 preplaned ``kernel="general"`` run and ``ld_general_unit`` from its
-``--unweighted`` CLI run.  Launches of the kernel-vs-plain checks are not
-counted.  The last three lines of standard output are the kernels JSON,
+``--unweighted`` CLI run, and the four lo_int8 variants from the lo_int8
+runs of the analytics and ambiguous phases.  Launches of the
+kernel-vs-plain checks (every weighted entry in lo_int8 too, each on a
+full batch of the main path's own session) are not counted.  The last three lines of standard output are the kernels JSON,
 the card line from nvidia-smi, and the result JSON.  The script makes only
 the first visible card visible to itself.
 """
@@ -91,6 +120,12 @@ RTOL, ATOL = 1e-5, 1e-6
 N_HEAD, S_HEAD, N_TRIPLETS = 1000, 49152, 3400
 S_TIMED = 8192
 SLICE_SITES = 4096
+# The analytics phase's edges, and the sites of its matrix-export slices
+# (the session's method; the CLI's --matrix-output).
+HIST_EDGES = "0,0.1,0.2,0.5,1.01"
+DECAY_EDGES = "0,1,10,100,1000,10000,100000"
+TOP_K = 1000
+MATRIX_SITES, MATRIX_CLI_SITES = 8192, 2048
 # (N, S) of the entries phase: N_pad below, at and above 1,024 at the
 # headline S, and planes + xq of 1.2 GB at N = 1,000.
 ENTRY_SHAPES = ((500, S_HEAD), (1000, S_HEAD), (2000, S_HEAD),
@@ -110,7 +145,20 @@ KERNELS = {
     "ld_general": ("weightedld_tpu/ops/pallas_ld.py:184", GENERAL_SRC),
     "ld_general_unit": ("weightedld_tpu/ops/pallas_ld.py:361", GENERAL_SRC),
     "ld_general_planes": ("weightedld_tpu/ops/pallas_ld.py:658", GENERAL_SRC),
+    # The lo_int8 weight mode of the same bodies (pallas_ld.py:926-930,
+    # :1173-1177, :307-315), counted under their own names.
+    "ld_majmin_codes_lo_int8": ("weightedld_tpu/ops/pallas_ld.py:926",
+                                MAJMIN_SRC),
+    "ld_majmin_planes_lo_int8": ("weightedld_tpu/ops/pallas_ld.py:1173",
+                                 MAJMIN_SRC),
+    "ld_general_lo_int8": ("weightedld_tpu/ops/pallas_ld.py:307",
+                           GENERAL_SRC),
+    "ld_general_planes_lo_int8": ("weightedld_tpu/ops/pallas_ld.py:307",
+                                  GENERAL_SRC),
 }
+# The H100 SXM's published dense peaks at 700 W (int8 and bf16 tensor
+# cores, HBM3), against which bound_ms is computed.
+PEAK_INT8_OPS, PEAK_BF16_FLOPS, PEAK_BYTES = 1979e12, 989e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -169,6 +217,8 @@ def _case_inputs(seed, alphabet, n_seqs, n_sites, tile, seq_chunk, wq,
         w /= w.max()
     if wq in ("int8", "int8x3"):
         wr = K.pad_weights_int8(w, seq_chunk, levels=2 if wq == "int8" else 3)
+    elif wq == "lo_int8":
+        wr = K.pad_weights_lo_int8(w, seq_chunk)
     else:
         wr = K.pad_weights(w, seq_chunk)
     plan = plan_tiles(n_sites, tile)
@@ -179,7 +229,7 @@ def _case_inputs(seed, alphabet, n_seqs, n_sites, tile, seq_chunk, wq,
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     kw = dict(tile=tile, n_sites=n_sites, seq_chunk=seq_chunk,
               unit_weights=wq == "unit", exact_weights=wq == "exact",
-              wquant=wq if wq in ("int8", "int8x3") else "")
+              wquant=wq if wq in ("int8", "int8x3", "lo_int8") else "")
     return (t(codes), t(wr), t(auxc), t(plan.tile_i), t(plan.tile_j),
             t(emit), kw)
 
@@ -278,6 +328,21 @@ def check_session_batch(sess, label: str, b: int = 0,
     return name, e
 
 
+def _variant(name: str, wq: str) -> str:
+    """The kernels-line name of entry ``name`` under weight mode ``wq``."""
+    return name + "_lo_int8" if wq == "lo_int8" else name
+
+
+def _bound(ops_int8: float, flops_bf16: float, nbytes: float,
+           ) -> tuple[float, str]:
+    """``(bound_ms, bound_by)``: the larger of the bytes over the HBM rate
+    and the operations over the tensor-core peaks of their type."""
+    t_ops = ops_int8 / PEAK_INT8_OPS + flops_bf16 / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def phase_kernels() -> dict:
     import torch
 
@@ -286,7 +351,7 @@ def phase_kernels() -> dict:
 
     dev = torch.device("cuda")
     err = {name: 0.0 for name in KERNELS}
-    bitwise = {name: True for name in ("ld_majmin_codes", "ld_majmin_planes")}
+    bitwise = {name: True for name in KERNELS}
     cases = [
         # seed, alphabet, N, S, tile, seq_chunk, weight mode
         (1, (0, 1, 4), 1000, 700, 256, 256, "int8x3"),
@@ -297,64 +362,85 @@ def phase_kernels() -> dict:
         (6, (0, 3, 4), 150, 300, 48, 64, "int8"),
         (7, (0, 1), 37, 90, 32, 40, "unit"),
         (8, (0, 1, 2, 3, 4), 333, 257, 64, 120, "int8x3"),
+        (9, (0, 1, 4), 1000, 700, 256, 256, "lo_int8"),
+        (10, (0, 1, 2, 3, 4), 150, 300, 48, 64, "lo_int8"),
+        (12, (0, 1, 4), 333, 257, 64, 120, "lo_int8"),
     ]
     for seed, alpha, n, s, tile, chunk, wq in cases:
         codes, wr, auxc, ti, tj, em, kw = _case_inputs(
             seed, alpha, n, s, tile, chunk, wq, dev)
         label = f"N={n} S={s} T={tile} chunk={chunk} {wq} alphabet={alpha}"
+        name = _variant("ld_majmin_codes", wq)
         got = K.tile_stats_majmin(codes, wr, auxc, ti, tj, em, **kw)
         ref = K.tile_stats_majmin_plain(codes, wr, auxc, ti, tj, em, **kw)
         torch.cuda.synchronize()
-        e = _compare(got, ref, "codes " + label)
-        err["ld_majmin_codes"] = max(err["ld_majmin_codes"], e)
-        bitwise["ld_majmin_codes"] &= bool(torch.equal(
-            got.r2[ref.keep], ref.r2[ref.keep]))
+        err[name] = max(err[name], _compare(got, ref, "codes " + label))
+        bitwise[name] &= bool(torch.equal(got.r2[ref.keep], ref.r2[ref.keep]))
         planes = K.build_majmin_planes(codes, auxc, tile=tile)
         nlev = {"int8": 2, "int8x3": 3}.get(kw["wquant"], 0)
         xq = K.build_majmin_xq(planes, wr, nlev) if nlev else None
+        name = _variant("ld_majmin_planes", wq)
         got = K.tile_stats_majmin_pre(planes, xq, wr, auxc, ti, tj, em, **kw)
         ref = K.tile_stats_majmin_pre_plain(planes, xq, wr, auxc, ti, tj, em,
                                             **kw)
         torch.cuda.synchronize()
-        e = _compare(got, ref, "planes " + label)
-        err["ld_majmin_planes"] = max(err["ld_majmin_planes"], e)
-        bitwise["ld_majmin_planes"] &= bool(torch.equal(
-            got.r2[ref.keep], ref.r2[ref.keep]))
+        err[name] = max(err[name], _compare(got, ref, "planes " + label))
+        bitwise[name] &= bool(torch.equal(got.r2[ref.keep], ref.r2[ref.keep]))
         log(f"[kernels] ok: {label}")
     log(f"[kernels] max |kernel - plain| on kept pairs: {err}; "
         f"r2 bitwise equal: {bitwise}")
 
     # Time both entry points and their plain versions on the full tile
-    # plan of N=1,000 x S=8,192 (T=256, one 1,024-wide seq chunk, int8x3),
-    # then hold the timed calls' outputs against each other.
-    codes, wr, auxc, ti, tj, em, kw = _case_inputs(
-        11, (0, 1, 4), N_HEAD, S_TIMED, 256, 1024, "int8x3", dev)
-    em = torch.ones_like(em)
-    planes = K.build_majmin_planes(codes, auxc, tile=256)
-    xq = K.build_majmin_xq(planes, wr, 3)
+    # plan of N=1,000 x S=8,192 (T=256, one 1,024-wide seq chunk; int8x3,
+    # then lo_int8), then hold the timed calls' outputs against each other.
     batch = 128
+    ms, plain_ms, bound, shape = {}, {}, {}, {}
+    for wq in ("int8x3", "lo_int8"):
+        codes, wr, auxc, ti, tj, em, kw = _case_inputs(
+            11, (0, 1, 4), N_HEAD, S_TIMED, 256, 1024, wq, dev)
+        em = torch.ones_like(em)
+        planes = K.build_majmin_planes(codes, auxc, tile=256)
+        nlev = 3 if wq == "int8x3" else 0
+        xq = K.build_majmin_xq(planes, wr, 3) if nlev else None
 
-    def run(fn, *ops):
-        return [fn(*ops, wr, auxc, ti[lo:lo + batch], tj[lo:lo + batch],
-                   em[lo:lo + batch], **kw)
-                for lo in range(0, ti.shape[0], batch)]
+        def run(fn, *ops):
+            return [fn(*ops, wr, auxc, ti[lo:lo + batch], tj[lo:lo + batch],
+                       em[lo:lo + batch], **kw)
+                    for lo in range(0, ti.shape[0], batch)]
 
-    ops = {"ld_majmin_codes": (K.tile_stats_majmin, K.tile_stats_majmin_plain,
-                               (codes,)),
-           "ld_majmin_planes": (K.tile_stats_majmin_pre,
-                                K.tile_stats_majmin_pre_plain, (planes, xq))}
-    ms, plain_ms = {}, {}
-    for name, (fn, plain, src) in ops.items():
-        ms[name], got = _time_cuda(lambda: run(fn, *src), 3)
-        plain_ms[name], ref = _time_cuda(lambda: run(plain, *src), 1)
-        for b, (g, r) in enumerate(zip(got, ref)):
-            e = _compare(g, r, f"{name} timed N={N_HEAD} S={S_TIMED} "
-                         f"chunk=1024 batch {b}")
-            err[name] = max(err[name], e)
-        log(f"[kernels] ok: {name} timed calls, {ti.shape[0]} tiles in "
-            f"{len(got)} launches of <= {batch}, kernel == plain")
-        del got, ref
-    del codes, planes, xq
+        ops = {"ld_majmin_codes": (K.tile_stats_majmin,
+                                   K.tile_stats_majmin_plain, (codes,)),
+               "ld_majmin_planes": (K.tile_stats_majmin_pre,
+                                    K.tile_stats_majmin_pre_plain,
+                                    (planes, xq))}
+        # Work of the whole plan: 4 cells per output pair, per sequence
+        # column: int8x3 3 int8 MACs; lo_int8 one bf16 MAC (w_hi) and one
+        # int8 MAC (the residual).  Bytes: each input read once, the
+        # outputs (d, d', r2 f32, keep int8) written once.
+        pairs = ti.shape[0] * 256 * 256
+        n_pad, s_pad = codes.shape[1], codes.shape[0]
+        macs = 4 * pairs * n_pad
+        out_bytes = 13 * pairs + 12 * ti.shape[0] + wr.numel() * 4 \
+            + auxc.numel() * 4
+        for name, (fn, plain, src) in ops.items():
+            vname = _variant(name, wq)
+            in_bytes = sum(x.numel() for x in src if x is not None)
+            bound[vname] = _bound(
+                2 * macs * (3 if wq == "int8x3" else 1),
+                2 * macs if wq == "lo_int8" else 0, in_bytes + out_bytes)
+            ms[vname], got = _time_cuda(lambda: run(fn, *src), 3)
+            plain_ms[vname], ref = _time_cuda(lambda: run(plain, *src), 1)
+            for b, (g, r) in enumerate(zip(got, ref)):
+                e = _compare(g, r, f"{vname} timed N={N_HEAD} S={S_TIMED} "
+                             f"chunk=1024 batch {b}")
+                err[vname] = max(err[vname], e)
+                bitwise[vname] &= bool(torch.equal(g.r2[r.keep],
+                                                   r.r2[r.keep]))
+            shape[vname] = f"{wq}, s_pad {s_pad}, n_pad {n_pad}"
+            log(f"[kernels] ok: {vname} timed calls, {ti.shape[0]} tiles in "
+                f"{len(got)} launches of <= {batch}, kernel == plain")
+            del got, ref
+        del codes, planes, xq
 
     # The general kernel's entries (codes, unit weights, preplaned) against
     # their plain versions: P = 2..5, 1-10 % UNKNOWN cells, a restricted
@@ -370,6 +456,8 @@ def phase_kernels() -> dict:
         (27, (0, 1, 2, 3, 4), 37, 90, 32, 40, "unit", 0.05, None),
         (28, (0, 1, 2, 3, 4), 333, 257, 64, 120, "int8x3", 0.04, (0, 2, 4)),
         (29, (0, 1, 2, 3, 4), 333, 257, 64, 120, "unit", 0.04, (1, 3)),
+        (30, (0, 1, 2, 3, 4), 1000, 700, 256, 256, "lo_int8", 0.01, None),
+        (32, (0, 1, 2, 3, 4), 333, 257, 64, 120, "lo_int8", 0.04, (0, 2, 4)),
     ]
     for seed, alpha, n, s, tile, chunk, wq, unk, planes in gcases:
         codes, wr, ti, tj, em, kw = _general_case_inputs(
@@ -379,28 +467,28 @@ def phase_kernels() -> dict:
         for pre in (False, True):
             src = G.build_planes_tiled(codes, tile=tile, planes=kw["planes"]) \
                 if pre else codes
-            name = "ld_general_planes" if pre else (
-                "ld_general_unit" if wq == "unit" else "ld_general")
+            name = _variant("ld_general_planes" if pre else (
+                "ld_general_unit" if wq == "unit" else "ld_general"), wq)
             got = G.tile_stats_general(src, wr, ti, tj, em, preplaned=pre,
                                        **kw)
             ref = G.tile_stats_general_plain(src, wr, ti, tj, em,
                                              preplaned=pre, **kw)
             torch.cuda.synchronize()
             err[name] = max(err[name], _compare(got, ref, f"{name} {label}"))
-            bitwise[name] = bitwise.get(name, True) and bool(torch.equal(
-                got.r2[ref.keep], ref.r2[ref.keep]))
+            bitwise[name] &= bool(torch.equal(got.r2[ref.keep],
+                                              ref.r2[ref.keep]))
         log(f"[kernels] ok: general {label}")
     log(f"[kernels] max |kernel - plain| on kept pairs: {err}; "
         f"r2 bitwise equal: {bitwise}")
 
     # Time the general entries and their plain versions on the full plan of
     # N=1,000 x S=8,192 at P = 5 with 1 % UNKNOWN sites (T=256, one
-    # 1,024-wide chunk; int8x3 and unit weights), outputs held against
-    # each other.
-    gtimed = {}
+    # 1,024-wide chunk), outputs held against each other.
     for name, wq, pre in (("ld_general", "int8x3", False),
                           ("ld_general_unit", "unit", False),
-                          ("ld_general_planes", "int8x3", True)):
+                          ("ld_general_planes", "int8x3", True),
+                          ("ld_general_lo_int8", "lo_int8", False),
+                          ("ld_general_planes_lo_int8", "lo_int8", True)):
         codes, wr, ti, tj, em, kw = _general_case_inputs(
             31, (0, 1, 2, 3, 4), N_HEAD, S_TIMED, 256, 1024, wq, 0.0, None,
             dev, dirty_sites=S_TIMED // 100)
@@ -413,6 +501,18 @@ def phase_kernels() -> dict:
                        em[lo:lo + batch], preplaned=pre, **kw)
                     for lo in range(0, ti.shape[0], batch)]
 
+        # Work: per output pair and sequence column the 2P count MACs, then
+        # the four selected cells per weight pass (int8x3: 3 int8 levels;
+        # unit: 1; lo_int8: one int8 and one bf16) — the least work of the
+        # known formulations (the TPU's dense P^2 L + 2P joint is larger).
+        p = len(kw["planes"])
+        pairs = ti.shape[0] * 256 * 256
+        n_pad = codes.shape[1]
+        cells = {"int8x3": 12, "unit": 4, "lo_int8": 4}[wq]
+        bound[name] = _bound(
+            2 * pairs * n_pad * (2 * p + cells),
+            2 * pairs * n_pad * 4 if wq == "lo_int8" else 0,
+            src.numel() + wr.numel() * 4 + 12 * ti.shape[0] + 13 * pairs)
         ms[name], got = _time_cuda(lambda: grun(G.tile_stats_general), 3)
         plain_ms[name], ref = _time_cuda(
             lambda: grun(G.tile_stats_general_plain), 1)
@@ -420,19 +520,48 @@ def phase_kernels() -> dict:
             err[name] = max(err[name], _compare(
                 g, r, f"{name} timed N={N_HEAD} S={S_TIMED} chunk=1024 "
                 f"batch {b}"))
-        gtimed[name] = f"{wq}, P={len(kw['planes'])}"
+            bitwise[name] &= bool(torch.equal(g.r2[r.keep], r.r2[r.keep]))
+        shape[name] = f"{wq}, P={p}"
         log(f"[kernels] ok: {name} timed calls, {ti.shape[0]} tiles in "
             f"{len(got)} launches of <= {batch}, kernel == plain")
         del got, ref, codes, src
 
     n_pairs = S_TIMED * (S_TIMED - 1) // 2
+    card = card_line()
     for name in KERNELS:
         log(f"[kernels] {name}: {ms[name]:.3f} ms kernel vs "
-            f"{plain_ms[name]:.3f} ms plain for {ti.shape[0]} tiles "
-            f"(N={N_HEAD}, S={S_TIMED}, T=256, "
-            f"{gtimed.get(name, 'int8x3')}): "
-            f"{n_pairs / (ms[name] / 1e3):.4g} pairs/s kernel | {card_line()}")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+            f"{plain_ms[name]:.3f} ms plain, bound {bound[name][0]:.4f} ms "
+            f"({bound[name][1]}) for {ti.shape[0]} tiles (N={N_HEAD}, "
+            f"S={S_TIMED}, T=256, {shape[name]}): "
+            f"{n_pairs / (ms[name] / 1e3):.4g} pairs/s kernel | {card}")
+    log(f"[kernels] r2 bitwise equal, kernel vs plain: {bitwise}")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound}
+
+
+def phase_yardstick() -> None:
+    """Not in the default run: ``torch._int_mm`` over the factorized
+    kernel's int8 contraction on the timed plan (N=1,000 x S=8,192, int8x3):
+    each cascade level's ``xq_l [2*S_pad, N_pad]`` against the planes'
+    transpose, the whole square (twice the triangle the kernel computes),
+    without the selection, the combine or the finalize — "contraction
+    only", a yardstick and no function of the port."""
+    import torch
+
+    from weightedld_tpu_torch.ops import cuda_ld as K
+
+    dev = torch.device("cuda")
+    codes, wr, auxc, _ti, _tj, _em, _kw = _case_inputs(
+        11, (0, 1, 4), N_HEAD, S_TIMED, 256, 1024, "int8x3", dev)
+    planes = K.build_majmin_planes(codes, auxc, tile=256)
+    xq = K.build_majmin_xq(planes, wr, 3)
+    pt = planes.t()
+    t_ms, _out = _time_cuda(lambda: [torch._int_mm(xq[lv], pt)
+                                     for lv in range(3)], 3)
+    m, kdim = planes.shape
+    ops = 3 * 2 * m * m * kdim
+    log(f"[yardstick] torch._int_mm, 3 levels of [{m}, {kdim}] x [{kdim}, "
+        f"{m}] int8 -> int32 (contraction only, whole square): {t_ms:.3f} "
+        f"ms, {ops / (t_ms / 1e3):.4g} int8 ops/s | {card_line()}")
 
 
 # ---------------------------------------------------------------------------
@@ -560,11 +689,14 @@ def phase_main(tmp: Path) -> tuple[dict, dict]:
         log(f"[main] stage {name:<12} {sec:.3f}s")
     log(f"[main] {n_pairs / scan:.4g} pairs/s over scan+write "
         f"({n_pairs} pairs), {n_pairs / wall:.4g} pairs/s end to end")
-    np.save(tmp / "headline_aln.npy", aln[:, :SLICE_SITES])
+    np.save(tmp / "headline_aln.npy", aln[:, :MATRIX_SITES])
+    np.save(tmp / "headline_seeds.npy", seeds)
 
     # The same input through the library entry with the codes entry, the
     # path of inputs whose planes do not fit the card (plane_budget).
     res = prepare(vcf)
+    np.savez(tmp / "headline_prepared.npz", alignment=res.alignment,
+             weights=res.weights, site_map=res.site_map)
     out_codes = tmp / "headline_codes.tsv"
     n_rec, codes_counts = _counted(
         run_to_tsv, res.alignment, res.weights, res.site_map, out_codes,
@@ -598,10 +730,10 @@ def phase_cpu_vs_card(tmp: Path) -> tuple[str, float]:
     and the max abs error of its batch check."""
     from weightedld_tpu_torch.pipeline import prepare
 
-    aln = np.load(tmp / "headline_aln.npy") if (
+    aln = (np.load(tmp / "headline_aln.npy") if (
         tmp / "headline_aln.npy").exists() else loaded_alignment(
             np.random.default_rng(2024), N_HEAD, S_HEAD, N_TRIPLETS
-        )[0][:, :SLICE_SITES]
+        )[0])[:, :SLICE_SITES]
     vcf = tmp / "slice.vcf"
     write_vcf(vcf, aln)
     outs, counts = {}, {}
@@ -628,6 +760,291 @@ def phase_cpu_vs_card(tmp: Path) -> tuple[str, float]:
     sess = _session(prepare(vcf), tile=256, seq_chunk=200,
                     r2_threshold=0.005)
     return check_session_batch(sess, "slice")
+
+
+def _json_run(argv: list[str]) -> tuple[dict, dict]:
+    """One CLI run of a JSON output mode: ``(its JSON, its launch
+    counts)``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        counts = _drive(argv)
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), counts
+
+
+def _hold_records(got: dict, want: dict, label: str, rtol: float = 2e-5,
+                  atol: float = 1e-6) -> float:
+    """Assert two record maps (``read_records``) hold the same pairs with
+    values within ``rtol`` / ``atol`` (equal non-finite patterns); returns
+    the max abs difference."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: record sets differ ({len(got)} vs "
+                             f"{len(want)})")
+    worst = 0.0
+    for key, w in want.items():
+        g, w = np.asarray(got[key]), np.asarray(w)
+        fin = np.isfinite(w)
+        if not np.array_equal(np.isfinite(g), fin) or not np.allclose(
+                g[fin], w[fin], rtol=rtol, atol=atol):
+            raise AssertionError(f"{label} {key}: {g} vs {w}")
+        if fin.any():
+            worst = max(worst, float(np.abs(g[fin] - w[fin]).max()))
+    return worst
+
+
+def _stream_cells(sess) -> tuple:
+    """``(i, j, {"d", "d_prime", "r2"})`` of every record of one stream of
+    ``sess``: the 0-based sites (VCF POS - 1) and exact values."""
+    parts = [r for _b, r in sess.stream()]
+    ia = np.concatenate([r.pos_a for r in parts]) - 1
+    ib = np.concatenate([r.pos_b for r in parts]) - 1
+    return ia, ib, {f: np.concatenate([getattr(r, f) for r in parts])
+                    for f in ("d", "d_prime", "r2")}
+
+
+def _hold_matrices(mats: dict, cells: tuple, dtype: str, how: str) -> None:
+    """Assert ``mats`` keep exactly the pairs of ``cells`` and hold their
+    values: float32 exactly, float16 within 2^-10 relative (or its
+    subnormal step)."""
+    ia, ib, want = cells
+    keep = mats["keep"]
+    if int(keep.sum()) != len(ia) or not keep[ia, ib].all():
+        raise AssertionError(f"{how} {dtype}: keep has {int(keep.sum())} "
+                             f"pairs vs {len(ia)} records")
+    for f, w in want.items():
+        g = mats[f][ia, ib].astype(np.float32)
+        if dtype == "float32":
+            ok = np.array_equal(g, w, equal_nan=True)
+        else:
+            fin = np.isfinite(w)
+            ok = np.array_equal(np.isfinite(g), fin) and bool(np.all(
+                np.abs(g[fin] - w[fin])
+                <= 2.0 ** -10 * np.abs(w[fin]) + 2.0 ** -24))
+        if not ok or mats[f].dtype != np.dtype(dtype):
+            raise AssertionError(f"{how} {dtype}: {f} differs from the "
+                                 "stream's records")
+
+
+def _hold_cli_modes(vcf: Path, sess) -> None:
+    """The CLI's ``--r2-hist``, ``--ld-decay``, ``--top`` and
+    ``--prune-r2`` on ``vcf``, each held against the method of ``sess``,
+    the session the CLI builds for that input: equal counts, positions
+    and bins, decay sums within rtol 1e-5, and for the top pairs the same
+    r2 multiset and the same rows above the k-th value."""
+    import io
+
+    from weightedld_tpu_torch.io.writer import write_pairs
+
+    def need(counts, flag):
+        if not counts.get("ld_majmin_planes"):
+            raise AssertionError(f"{flag} never launched ld_majmin_planes")
+
+    t0 = time.monotonic()
+    base = ["--file", str(vcf)]
+    got, counts = _json_run(base + ["--r2-hist", HIST_EDGES])
+    need(counts, "--r2-hist")
+    if got["n_pairs"] != sess.r2_histogram(HIST_EDGES.split(","))["n_pairs"]:
+        raise AssertionError(f"--r2-hist {got} differs from r2_histogram")
+    got, counts = _json_run(base + ["--ld-decay", DECAY_EDGES])
+    need(counts, "--ld-decay")
+    want = sess.ld_decay(DECAY_EDGES.split(","))
+    for key in ("n_pairs", "n_d_prime_finite"):
+        if got[key] != want[key]:
+            raise AssertionError(f"--ld-decay {key}: {got[key]} vs "
+                                 f"{want[key]}")
+    for key in ("r2_sum", "abs_d_prime_sum"):
+        if not np.allclose(got[key], want[key], rtol=1e-5, atol=0):
+            raise AssertionError(f"--ld-decay {key}: {got[key]} vs "
+                                 f"{want[key]}")
+    out = vcf.with_suffix(".top.tsv")
+    need(_drive(base + ["--engine", "tiled", "--top", str(TOP_K),
+                        "--pair-output", str(out)]), "--top")
+    buf = io.StringIO()
+    write_pairs(sess.top_pairs(TOP_K), buf)
+    rows = {name: text.splitlines()[1:] for name, text in
+            (("cli", out.read_text()), ("method", buf.getvalue()))}
+    r2 = {k: sorted(float(x.rsplit("\t", 1)[1]) for x in v)
+          for k, v in rows.items()}
+    above = {k: {x for x in v if float(x.rsplit("\t", 1)[1]) > r2[k][0]}
+             for k, v in rows.items()}
+    if r2["cli"] != r2["method"] or above["cli"] != above["method"]:
+        raise AssertionError("--top differs from top_pairs")
+    out = vcf.with_suffix(".prune.txt")
+    need(_drive(base + ["--prune-r2", "0.1", "--pair-output", str(out)]),
+         "--prune-r2")
+    kept = [int(x) for x in out.read_text().split()]
+    if kept != sess.prune(0.1).tolist():
+        raise AssertionError("--prune-r2 0.1 differs from prune(0.1)")
+    log(f"[analytics] CLI --r2-hist, --ld-decay, --top {TOP_K}, --prune-r2 "
+        f"0.1 on {vcf.name}: each equal to the session's method "
+        f"({time.monotonic() - t0:.2f}s)")
+
+
+def phase_analytics(tmp: Path) -> tuple[dict, dict]:
+    """The analytics methods of one session on the prepared headline, each
+    held against the records of the ``main`` phase; the matrix export and
+    the CLI's analytics modes on slices, against the session's methods;
+    then the lo_int8 weight mode through the headline CLI and the codes
+    entry, and one batch of each lo_int8 factorized session, kernel against
+    plain.  Returns the main-path launch counts of the lo_int8 factorized
+    entries and the max abs errors of the batch checks."""
+    from weightedld_tpu_torch.pipeline import prepare
+    from weightedld_tpu_torch.runtime.driver import (DriverConfig, LdSession,
+                                                     run_to_tsv)
+
+    vcf, head_tsv = tmp / "headline.vcf", tmp / "headline.tsv"
+    if not head_tsv.exists():
+        raise RuntimeError("the analytics phase reads the main phase's "
+                           "output: run it with the main phase")
+    rec = read_records(head_tsv)                    # r2 > 0.1, 4 dp
+    with np.load(tmp / "headline_prepared.npz") as f:   # the main phase's
+        prep = (f["alignment"], f["weights"], f["site_map"])
+
+    def need(counts, name, label):
+        if not counts.get(name):
+            raise AssertionError(f"{label} never launched {name}: {counts}")
+
+    def timed(label, fn, *args):
+        t0 = time.monotonic()
+        out, counts = _counted(fn, *args)
+        need(counts, "ld_majmin_planes", label)
+        return out, f"{time.monotonic() - t0:.3f}s"
+
+    sess = LdSession(*prep, DriverConfig(r2_threshold=0.1), device="cuda")
+    summ, dt = timed("summarize", sess.summarize)
+    if summ["n_over_threshold"] != len(rec):
+        raise AssertionError(f"summarize: {summ['n_over_threshold']} over "
+                             f"0.1 vs {len(rec)} records")
+    n_pairs = summ["n_pairs"]
+    log(f"[analytics] summarize: {summ} ({dt}); n_over_threshold == the "
+        f"{len(rec)} records")
+
+    hist, dt = timed("r2_histogram", sess.r2_histogram,
+                     HIST_EDGES.split(","))
+    if sum(hist["n_pairs"]) != n_pairs or sum(hist["n_pairs"][1:]) \
+            < len(rec):
+        raise AssertionError(f"r2_histogram: {hist['n_pairs']} vs n_pairs "
+                             f"{n_pairs}, {len(rec)} records over 0.1")
+    log(f"[analytics] r2_histogram: {hist['n_pairs']} sum to n_pairs ({dt})")
+
+    decay, dt = timed("ld_decay", sess.ld_decay, DECAY_EDGES.split(","))
+    if sum(decay["n_pairs"]) != n_pairs:
+        raise AssertionError(f"ld_decay: {decay['n_pairs']} do not sum to "
+                             f"n_pairs {n_pairs}")
+    log(f"[analytics] ld_decay: n_pairs {decay['n_pairs']} sum to n_pairs, "
+        f"r2_mean {decay['r2_mean']} ({dt})")
+
+    top, dt = timed("top_pairs", sess.top_pairs, TOP_K)
+    keys = set(zip(top.pos_a.tolist(), top.pos_b.tolist()))
+    last = round(float(top.r2.min()), 4)            # the records' 4 dp
+    outside = max(v[2] for k, v in rec.items() if k not in keys)
+    if len(keys) != TOP_K or not keys <= set(rec) or outside > last:
+        raise AssertionError(f"top_pairs({TOP_K}): {len(keys)} pairs, last "
+                             f"r2 {last}, max r2 outside {outside}")
+    log(f"[analytics] top_pairs({TOP_K}): every other record's r2 <= {last} "
+        f"(max {outside}) ({dt})")
+
+    kept, dt = timed("prune", sess.prune, 0.1)
+    kept = set(kept.tolist())
+    bad = [k for k in rec if k[0] in kept and k[1] in kept]
+    if bad or len(kept) >= S_HEAD:
+        raise AssertionError(f"prune(0.1): {len(bad)} records join kept "
+                             f"sites, e.g. {bad[:3]}; {len(kept)} kept")
+    log(f"[analytics] prune(0.1): {len(kept)} of {S_HEAD} sites kept, no "
+        f"record joins two ({dt})")
+    del sess
+
+    # Matrices of an S = 8,192 slice from the session's method, float32
+    # and float16, against the records of a stream; the CLI's other modes
+    # on that slice (about 1 s of ingest each) against the same session's
+    # methods; then the CLI's --matrix-output on a 2,048-site slice (its
+    # .npz written compressed, as the JAX CLI writes it) against the
+    # session method.
+    aln = np.load(tmp / "headline_aln.npy")
+    sl = tmp / "matrix_slice.vcf"
+    write_vcf(sl, aln[:, :MATRIX_SITES])
+    res = prepare(sl)
+    sess = LdSession(res.alignment, res.weights, res.site_map,
+                     DriverConfig(), device="cuda")
+    cells = _stream_cells(sess)
+    for dtype in ("float32", "float16"):
+        mats, dt = timed("LdSession.matrices", sess.matrices,
+                         np.dtype(dtype))
+        _hold_matrices(mats, cells, dtype, "LdSession.matrices")
+        log(f"[analytics] LdSession.matrices {dtype} (S={MATRIX_SITES}): "
+            f"keep and the {len(cells[0])} kept cells equal the stream's "
+            f"records ({dt})")
+        del mats
+    del cells
+    _hold_cli_modes(sl, sess)
+    del sess
+    sl = tmp / "matrix_cli_slice.vcf"
+    write_vcf(sl, aln[:, :MATRIX_CLI_SITES])
+    res = prepare(sl)
+    want = LdSession(res.alignment, res.weights, res.site_map,
+                     DriverConfig(), device="cuda").matrices(np.float16)
+    npz = tmp / "matrices_float16.npz"
+    counts = _drive(["--file", str(sl), "--matrix-output", str(npz),
+                     "--matrix-dtype", "float16"])
+    need(counts, "ld_majmin_planes", "--matrix-output")
+    with np.load(npz) as f:
+        got = dict(f)
+    for key, w in want.items():
+        if got[key].dtype != w.dtype or not np.array_equal(
+                got[key], w, equal_nan=True):
+            raise AssertionError(f"--matrix-output float16: {key} differs "
+                                 "from LdSession.matrices")
+    log(f"[analytics] --matrix-output float16 (S={MATRIX_CLI_SITES}): equal "
+        f"to LdSession.matrices(float16) of the same input")
+
+    # lo_int8: the CLI's --stats-only (the preplaned entry) and the codes
+    # entry, held to int8x3; then one batch of each lo_int8 session.
+    t0 = time.monotonic()
+    summ_lo, counts = _json_run(["--file", str(vcf), "--stats-only",
+                                 "--r2-threshold", "0.1", "--weight-quant",
+                                 "lo_int8"])
+    need(counts, "ld_majmin_planes_lo_int8", "--weight-quant lo_int8")
+    launches = {"ld_majmin_planes_lo_int8":
+                counts["ld_majmin_planes_lo_int8"]}
+    if summ_lo["n_over_threshold"] != len(rec) \
+            or summ_lo["n_pairs"] != n_pairs:
+        raise AssertionError(f"lo_int8 --stats-only: {summ_lo} vs int8x3 "
+                             f"{summ}")
+    log(f"[analytics] --stats-only --weight-quant lo_int8: {summ_lo}; "
+        f"counts equal int8x3's; launches {counts} "
+        f"({time.monotonic() - t0:.2f}s)")
+    outs = {}
+    for wq in ("none", "lo_int8"):
+        outs[wq] = tmp / f"headline_codes_{wq}.tsv"
+        _n, counts = _counted(
+            run_to_tsv, *prep, outs[wq],
+            DriverConfig(r2_threshold=0.1, preplaned="off", weight_quant=wq),
+            device="cuda", ndigits=8)
+    need(counts, "ld_majmin_codes_lo_int8", "run_to_tsv lo_int8")
+    launches["ld_majmin_codes_lo_int8"] = counts["ld_majmin_codes_lo_int8"]
+    lo_rec = read_records(outs["lo_int8"])
+    seeds = np.load(tmp / "headline_seeds.npy")
+    missing = planted_pairs(seeds, offset=1) - set(lo_rec)
+    if missing:
+        raise AssertionError(f"lo_int8: {len(missing)} planted pairs missing")
+    worst = _hold_records(lo_rec, read_records(outs["none"]),
+                          "lo_int8 vs int8x3 (codes entry)")
+    log(f"[analytics] lo_int8 codes entry: {len(lo_rec)} records, every "
+        f"planted pair, within rtol 2e-5 / atol 1e-6 of int8x3 (max abs "
+        f"diff {worst}); launches {counts}")
+    err = {}
+    for name, pp in (("ld_majmin_planes_lo_int8", "auto"),
+                     ("ld_majmin_codes_lo_int8", "off")):
+        sess = LdSession(*prep, DriverConfig(r2_threshold=0.1, preplaned=pp,
+                                             weight_quant="lo_int8"),
+                         device="cuda")
+        got, err[name] = check_session_batch(sess, f"headline {name}")
+        if got != name:
+            raise AssertionError(f"headline lo_int8 preplaned={pp} ran {got}")
+        del sess
+    return launches, err
 
 
 def ambiguous_alignment(rng, n_seqs, n_sites, n_groups, n_dirty):
@@ -810,6 +1227,38 @@ def phase_ambiguous(tmp: Path) -> tuple[dict, dict]:
     log("[ambiguous] (2) preplaned general TSV byte-identical")
     launches["ld_general_planes"] = counts["ld_general_planes"]
 
+    # (2b) lo_int8: the CLI (the hybrid's general phase on ld_general) and
+    # kernel="general" on the preplaned entry, each held to its int8x3 twin.
+    out_lo = tmp / "ambiguous_lo.tsv"
+    counts = _drive(["--file", str(fasta), "--r2-threshold", "0.1",
+                     "--ndigits", "8", "--weight-quant", "lo_int8",
+                     "--pair-output", str(out_lo)])
+    out_lo2 = tmp / "ambiguous_general_planes_lo.tsv"
+    _n, counts2 = _counted(
+        run_to_tsv, res.alignment, res.weights, res.site_map, out_lo2,
+        DriverConfig(kernel="general", preplaned="on", r2_threshold=0.1,
+                     weight_quant="lo_int8"), device="cuda", ndigits=8)
+    log(f"[ambiguous] (2b) lo_int8 CLI launches: {counts}; kernel='general' "
+        f"preplaned='on' lo_int8 launches: {counts2}")
+    if not counts["ld_general_lo_int8"] \
+            or not counts2["ld_general_planes_lo_int8"]:
+        raise AssertionError("the lo_int8 runs did not launch "
+                             "ld_general_lo_int8 / ld_general_planes_lo_int8")
+    launches["ld_general_lo_int8"] = counts["ld_general_lo_int8"]
+    launches["ld_general_planes_lo_int8"] = \
+        counts2["ld_general_planes_lo_int8"]
+    for out, want, label in ((out_lo, rec1, "hybrid"),
+                             (out_lo2, rec2, "general preplaned")):
+        got = read_records(out)
+        missing = planted - set(got)
+        if missing:
+            raise AssertionError(f"lo_int8 {label}: {len(missing)} planted "
+                                 "pairs missing")
+        worst = _hold_records(got, want, f"lo_int8 {label} vs int8x3")
+        log(f"[ambiguous] (2b) lo_int8 {label}: {len(got)} records, every "
+            f"planted pair, within rtol 2e-5 / atol 1e-6 of int8x3 (max abs "
+            f"diff {worst})")
+
     # (3) The CLI with --unweighted.
     out3 = tmp / "ambiguous_unweighted.tsv"
     counts = _drive(["--file", str(fasta), "--r2-threshold", "0.1",
@@ -852,13 +1301,24 @@ def phase_ambiguous(tmp: Path) -> tuple[dict, dict]:
         log(f"[ambiguous] (4) unweighted={uw}: TSVs byte-identical "
             f"({len(outs['cuda'])} bytes)")
 
-    # (5) Batch 0 of the kernel="general" session and of its unit twin.
-    for w, label in ((res.weights, "weighted"),
-                     (np.ones_like(res.weights), "unit")):
+    # (5) Batch 0 of the kernel="general" session and of its unit twin;
+    # the general batch of the lo_int8 CLI's hybrid session and batch 0 of
+    # the preplaned kernel="general" lo_int8 session.
+    for w, cfg, b, label in (
+            (res.weights, dict(kernel="general"), 0, "general weighted"),
+            (np.ones_like(res.weights), dict(kernel="general"), 0,
+             "general unit"),
+            (res.weights, dict(weight_quant="lo_int8"), -1,
+             "hybrid lo_int8, general phase"),
+            (res.weights, dict(kernel="general", preplaned="on",
+                               weight_quant="lo_int8"), 0,
+             "general preplaned lo_int8")):
         sess = LdSession(res.alignment, w, res.site_map,
-                         DriverConfig(kernel="general", r2_threshold=0.1),
-                         device="cuda")
-        name, e = check_session_batch(sess, f"ambiguous general {label}")
+                         DriverConfig(r2_threshold=0.1, **cfg), device="cuda")
+        name, e = check_session_batch(sess, f"ambiguous {label}",
+                                      b=b % sess.n_batches)
+        if "lo_int8" in label and not name.endswith("_lo_int8"):
+            raise AssertionError(f"ambiguous {label} ran {name}")
         err[name] = max(err.get(name, 0.0), e)
         del sess
     return launches, err
@@ -879,12 +1339,20 @@ def _scan_seconds(sess) -> float:
 def phase_profile() -> None:
     """Not in the default run: where the headline scan's time goes.  The
     session the CLI builds (Henikoff weights, r2 > 0.1) is scanned three
-    times after a warm-up, summarized once, then scanned once under
-    torch.profiler for the device time by kernel and the device idle
+    times after a warm-up and summarized once (the first summarize, the
+    sequence of earlier trees' profile phase), then by ``stream`` and
+    ``summarize`` in three interleaved rounds (stream, summarize,
+    summarize, stream); one batch's
+    top-k selection (k = TOP_K) is timed with the tile-max prefilter
+    (``topk_batch``) and as one flat ``torch.topk``, the same gather
+    after each, beside that batch's kernel launch; then one scan runs
+    under torch.profiler for the device time by kernel and the device idle
     share."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     from weightedld_tpu_torch.core.henikoff import henikoff_weights_host
+    from weightedld_tpu_torch.parallel.analytics import pair_rows, topk_batch
     from weightedld_tpu_torch.runtime.driver import DriverConfig, LdSession
 
     aln, _seeds = loaded_alignment(np.random.default_rng(2024), N_HEAD,
@@ -896,14 +1364,56 @@ def phase_profile() -> None:
                      DriverConfig(r2_threshold=0.1))
     log(f"[profile] set-up {time.monotonic() - t0:.4f}s {sess.cfg} "
         f"preplaned={sess.preplaned} batches={sess.n_batches}")
+
+    def summarize_seconds():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        sess.summarize()
+        return time.monotonic() - t0
+
     _scan_seconds(sess)                                # warm-up
     for _ in range(3):
         dt = _scan_seconds(sess)
         log(f"[profile] stream: {dt:.4f}s {n_pairs / dt:.4g} pairs/s | "
             f"{card_line()}")
-    t0 = time.monotonic()
-    sess.summarize()
-    log(f"[profile] summarize: {time.monotonic() - t0:.4f}s")
+    log(f"[profile] summarize: {summarize_seconds():.4f}s (the first)")
+    times = {"stream": [], "summarize": []}
+    for _ in range(3):
+        for kind in ("stream", "summarize", "summarize", "stream"):
+            times[kind].append(_scan_seconds(sess) if kind == "stream"
+                               else summarize_seconds())
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[profile] stream {times['stream']} s ({n_pairs / med['stream']:.4g} "
+        f"pairs/s at the median), summarize {times['summarize']} s; median "
+        f"summarize / stream {med['summarize'] / med['stream']:.4f} | "
+        f"{card_line()}")
+
+    st, ti, tj = sess._dispatch(0)
+    t = sess.cfg.tile
+
+    def flat():
+        masked = torch.where(st.keep, st.r2,
+                             torch.full_like(st.r2, -torch.inf))
+        vals, idx = torch.topk(masked.reshape(-1), TOP_K)
+        idx = idx[vals > -torch.inf]
+        return pair_rows(st, ti, tj, idx // (t * t), idx % (t * t), tile=t)
+
+    ms_kernel, _o = _time_cuda(lambda: sess._dispatch(0), 3)
+    ms = {"prefilter": [], "flat": []}
+    for kind in ("prefilter", "flat", "flat", "prefilter"):
+        ms[kind].append(_time_cuda(
+            (lambda: topk_batch(st, ti, tj, tile=t, k=TOP_K))
+            if kind == "prefilter" else flat, 5)[0])
+    a = topk_batch(st, ti, tj, tile=t, k=TOP_K)
+    b = flat()
+    if not torch.equal(a[:, 4], b[:, 4]):
+        raise AssertionError("top-k with and without the prefilter differ")
+    log(f"[profile] batch 0 ({ti.shape[0]} tiles): kernel launch "
+        f"{ms_kernel:.3f} ms; top-{TOP_K} selection + gather, with the "
+        f"tile-max prefilter {ms['prefilter']} ms, one flat torch.topk "
+        f"{ms['flat']} ms | {card_line()}")
+    del st, a, b
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = _scan_seconds(sess)
@@ -914,8 +1424,8 @@ def phase_profile() -> None:
     busy = sum(r[1] for r in kernels)
     log(f"[profile] device kernel time {busy:.3f} ms of {wall * 1e3:.3f} ms "
         f"wall: idle share {1 - busy / (wall * 1e3):.4f}")
-    for name, ms, count in kernels[:12]:
-        log(f"[profile]   {ms:10.3f} ms x{count:<4d} {name[:90]}")
+    for name, ms_k, count in kernels[:12]:
+        log(f"[profile]   {ms_k:10.3f} ms x{count:<4d} {name[:90]}")
 
 
 def phase_entries() -> None:
@@ -956,15 +1466,17 @@ def phase_entries() -> None:
         torch.cuda.empty_cache()
 
 
-DEFAULT_PHASES = ("build", "kernels", "main", "cpu-vs-card", "ambiguous")
+DEFAULT_PHASES = ("build", "kernels", "main", "cpu-vs-card", "analytics",
+                  "ambiguous")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of build, kernels, main, "
-                    "cpu-vs-card, ambiguous, profile and entries (default: "
-                    "the first five, which the result line needs)")
+                    "cpu-vs-card, analytics, ambiguous, profile, entries "
+                    "and yardstick (default: the first six, which the "
+                    "result line needs)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -1013,6 +1525,13 @@ def main() -> int:
             name, e = phase_cpu_vs_card(tmp)
             err[name] = max(err[name], e)
             done("cpu-vs-card", t0)
+        if "analytics" in phases:
+            t0 = time.monotonic()
+            an_launches, an_err = phase_analytics(tmp)
+            launches.update(an_launches)
+            for name, e in an_err.items():
+                err[name] = max(err[name], e)
+            done("analytics", t0)
         if "ambiguous" in phases:
             t0 = time.monotonic()
             amb_launches, amb_err = phase_ambiguous(tmp)
@@ -1024,6 +1543,8 @@ def main() -> int:
             phase_profile()
         if "entries" in phases:
             phase_entries()
+        if "yardstick" in phases:
+            phase_yardstick()
     if set(phases) != set(DEFAULT_PHASES):
         log("[smoke] partial run: no result line")
         return 0
@@ -1031,14 +1552,22 @@ def main() -> int:
         f"CLI run, ld_majmin_codes from the headline codes-entry run, "
         f"ld_general from the ambiguous CLI run, ld_general_planes from its "
         f"preplaned kernel='general' run, ld_general_unit from its "
-        f"--unweighted CLI run: {launches}")
+        f"--unweighted CLI run; the lo_int8 variants from the headline "
+        f"lo_int8 --stats-only CLI run (planes) and codes-entry run, the "
+        f"ambiguous lo_int8 CLI run (ld_general) and its preplaned "
+        f"kernel='general' lo_int8 run: {launches}")
     missing = [name for name in KERNELS if not launches.get(name)]
     if missing:
         raise AssertionError(f"no main-path launch of {missing}")
+    # No single PyTorch call computes any of these functions (per-pair
+    # major/dmin selection, the weighted combine and the pair algebra), so
+    # library_ms is null.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],
-         "ms": res["ms"][name], "plain_ms": res["plain_ms"][name]}
+         "ms": res["ms"][name], "plain_ms": res["plain_ms"][name],
+         "bound_ms": res["bound"][name][0], "bound_by": res["bound"][name][1],
+         "library_ms": None}
         for name, (replaces, src) in KERNELS.items()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,8 @@ CASES = {
     "snp-int8": (6, (0, 3, 4), 150, 300, 48, 64, "int8"),
     "binary-ragged": (7, (0, 1), 37, 90, 32, 40, "unit"),
     "multichunk": (8, (0, 1, 2, 3, 4), 333, 257, 64, 120, "int8x3"),
+    "snp-lo_int8-main": (9, (0, 1, 4), 1000, 600, 256, 1024, "lo_int8"),
+    "dna-lo_int8": (10, (0, 1, 2, 3, 4), 333, 257, 64, 120, "lo_int8"),
 }
 
 
@@ -60,8 +62,7 @@ def _inputs(name: str, device):
         w = (rng.random(n) + 0.05).astype(np.float32)
         w /= w.max()
     nlev = {"int8": 2, "int8x3": 3}.get(mode, 0)
-    wr = K.pad_weights_int8(w, chunk, levels=nlev) if nlev \
-        else K.pad_weights(w, chunk)
+    wr = _packed_weights(w, chunk, mode)
     plan = plan_tiles(s, tile)
     emit = np.ones(plan.n_tiles, np.int32)
     emit[rng.random(plan.n_tiles) < 0.2] = 0
@@ -71,8 +72,17 @@ def _inputs(name: str, device):
                   tile_i=t(plan.tile_i), tile_j=t(plan.tile_j), emit=t(emit))
     kw = dict(tile=tile, n_sites=s, seq_chunk=chunk,
               unit_weights=mode == "unit", exact_weights=mode == "exact",
-              wquant=mode if nlev else "")
+              wquant=mode if nlev or mode == "lo_int8" else "")
     return arrays, kw, nlev
+
+
+def _packed_weights(w, chunk, mode):
+    nlev = {"int8": 2, "int8x3": 3}.get(mode, 0)
+    if nlev:
+        return K.pad_weights_int8(w, chunk, levels=nlev)
+    if mode == "lo_int8":
+        return K.pad_weights_lo_int8(w, chunk)
+    return K.pad_weights(w, chunk)
 
 
 def _assert_match(got: K.PairStats, ref: K.PairStats) -> None:
@@ -103,6 +113,8 @@ def test_kernel_matches_plain_on_card(cuda_device, name, entry):
         got = K.tile_stats_majmin_pre(planes, xq, *args, **kw)
         ref = K.tile_stats_majmin_pre_plain(planes, xq, *args, **kw)
         kernel = "ld_majmin_planes"
+    if kw["wquant"] == "lo_int8":
+        kernel += "_lo_int8"
     torch.cuda.synchronize()
     assert K.launches[kernel] == before[kernel] + 1
     _assert_match(got, ref)
@@ -161,6 +173,10 @@ GENERAL_CASES = {
     "ragged-unit": (7, (0, 1, 2, 3, 4), 37, 90, 32, 40, "unit", 0.05, None),
     "restricted": (8, (0, 1, 2, 3, 4), 333, 257, 64, 120, "int8x3", 0.04,
                    (0, 2, 4)),
+    "dna5-lo_int8-main": (9, (0, 1, 2, 3, 4), 1000, 600, 256, 1024,
+                          "lo_int8", 0.01, None),
+    "restricted-lo_int8": (10, (0, 1, 2, 3, 4), 333, 257, 64, 120, "lo_int8",
+                           0.04, (0, 2, 4)),
 }
 
 
@@ -177,8 +193,7 @@ def _general_inputs(name: str, device):
         w = (rng.random(n) + 0.05).astype(np.float32)
         w /= w.max()
     nlev = {"int8": 2, "int8x3": 3}.get(mode, 0)
-    wr = K.pad_weights_int8(w, chunk, levels=nlev) if nlev \
-        else K.pad_weights(w, chunk)
+    wr = _packed_weights(w, chunk, mode)
     plan = plan_tiles(s, tile)
     emit = np.ones(plan.n_tiles, np.int32)
     emit[rng.random(plan.n_tiles) < 0.2] = 0
@@ -186,7 +201,7 @@ def _general_inputs(name: str, device):
     kw = dict(tile=tile, n_sites=s, seq_chunk=chunk,
               planes=planes or K.detect_planes_unknown(aln)[0],
               unit_weights=mode == "unit", exact_weights=mode == "exact",
-              wquant=mode if nlev else "")
+              wquant=mode if nlev or mode == "lo_int8" else "")
     return (t(K.pad_alignment_site_major(aln, tile, chunk)), t(wr),
             t(plan.tile_i), t(plan.tile_j), t(emit), kw)
 
@@ -202,6 +217,8 @@ def test_general_kernel_matches_plain_on_card(cuda_device, name, entry):
         kernel = "ld_general_planes"
     else:
         kernel = "ld_general_unit" if kw["unit_weights"] else "ld_general"
+    if kw["wquant"] == "lo_int8":
+        kernel += "_lo_int8"
     before = dict(G.launches)
     got = G.tile_stats_general(src, wr, ti, tj, em, preplaned=entry == "pre",
                                **kw)
@@ -242,3 +259,36 @@ def test_hybrid_session_records_equal_on_cpu_and_card(cuda_device, kernel,
                           for f in ("pos_a", "pos_b", "d", "d_prime", "r2")]
     for a, b in zip(runs["cpu"], runs[str(cuda_device)]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,weight_quant", [("auto", "none"),
+                                                 ("auto", "lo_int8"),
+                                                 ("general", "none")])
+def test_analytics_equal_on_cpu_and_card(cuda_device, kernel, weight_quant):
+    rng = np.random.default_rng(14)
+    aln = _scattered_alignment(rng, 200, 700, 20)
+    w = (rng.random(200) + 0.05).astype(np.float32)
+    sm = np.arange(700) * 2 + 1
+    cfg = DriverConfig(tile=128, seq_chunk=64, kernel=kernel,
+                       weight_quant=weight_quant)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        sess = LdSession(aln, w, sm, cfg, device=dev)
+        runs[str(dev)] = (sess.summarize(r2_threshold=0.02),
+                          sess.ld_decay((0, 10, 100, 1000, 2000)),
+                          sess.r2_histogram((0.0, 0.01, 0.05, 1.01)),
+                          sess.prune(0.05).tolist(),
+                          sess.top_pairs(40), sess.matrices(np.float16))
+    cpu, card = runs["cpu"], runs[str(cuda_device)]
+    for key in ("n_pairs", "n_over_threshold", "r2_max"):
+        assert cpu[0][key] == card[0][key]
+    assert cpu[0]["r2_sum_over_threshold"] == pytest.approx(
+        card[0]["r2_sum_over_threshold"], rel=1e-5)
+    assert cpu[1]["n_pairs"] == card[1]["n_pairs"]
+    np.testing.assert_allclose(cpu[1]["r2_sum"], card[1]["r2_sum"],
+                               rtol=1e-5)
+    assert cpu[2] == card[2] and cpu[3] == card[3]
+    np.testing.assert_array_equal(np.sort(cpu[4].r2), np.sort(card[4].r2))
+    for f in ("keep", "d", "d_prime", "r2"):
+        np.testing.assert_array_equal(cpu[5][f], card[5][f])

@@ -214,7 +214,7 @@ def _cpu_args(name="dna5-int8x3"):
     ("codes_dtype", TypeError),
     ("preplaned_rows", ValueError),
     ("tile_index", ValueError),
-    ("lo_int8", NotImplementedError),
+    ("lo_int8", None),             # ported: runs, and equals JAX's kernel
     ("meta_device", ValueError),
 ])
 def test_wrapper_raises_on_bad_input(breakage, exc):
@@ -237,10 +237,17 @@ def test_wrapper_raises_on_bad_input(breakage, exc):
         ti[0] = 999
     elif breakage == "lo_int8":
         kw["wquant"] = "lo_int8"
-        weights = torch.from_numpy(
-            P.pad_weights_lo_int8(np.ones(50, np.float32), 64))
+        w = (np.random.default_rng(0).random(50) + 0.05).astype(np.float32)
+        c = dict(c, weights=P.pad_weights_lo_int8(w, 64), kw=kw)
+        weights = torch.from_numpy(c["weights"])
     elif breakage == "meta_device":
         codes = codes.to("meta")
+    if exc is None:
+        st = G.tile_stats_general(codes, weights, ti, t["tile_j"], t["emit"],
+                                  **kw)
+        assert_stats_match({f: getattr(st, f).numpy() for f in st._fields},
+                           jax_stats(c, "codes"))
+        return
     with pytest.raises(exc):
         G.tile_stats_general(codes, weights, ti, t["tile_j"], t["emit"],
                              **kw)
@@ -251,5 +258,7 @@ def test_cpu_wrapper_launches_nothing():
     c, t = _cpu_args("snp3-unit")
     G.tile_stats_general(t["codes"], t["weights"], t["tile_i"], t["tile_j"],
                          t["emit"], **c["kw"])
-    assert G.launches == {"ld_general": 0, "ld_general_unit": 0,
-                          "ld_general_planes": 0}
+    assert set(G.launches) == {"ld_general", "ld_general_unit",
+                               "ld_general_planes", "ld_general_lo_int8",
+                               "ld_general_planes_lo_int8"}
+    assert not any(G.launches.values())

@@ -261,7 +261,7 @@ def _cpu_args(name="snp-int8x3"):
     ("noncontiguous", ValueError),
     ("seq_chunk", ValueError),
     ("tile_index", ValueError),
-    ("lo_int8", NotImplementedError),
+    ("lo_int8", None),             # ported: runs, and equals JAX's kernel
     ("meta_device", ValueError),
 ])
 def test_wrapper_raises_on_bad_input(breakage, exc):
@@ -284,10 +284,16 @@ def test_wrapper_raises_on_bad_input(breakage, exc):
         ti[0] = 999
     elif breakage == "lo_int8":
         kw["wquant"] = "lo_int8"
-        weights = torch.from_numpy(
-            P.pad_weights_lo_int8(np.ones(50, np.float32), 64))
+        w = (np.random.default_rng(0).random(50) + 0.05).astype(np.float32)
+        c = dict(c, weights=P.pad_weights_lo_int8(w, 64), kw=kw)
+        weights = torch.from_numpy(c["weights"])
     elif breakage == "meta_device":
         codes = codes.to("meta")
+    if exc is None:
+        st = K.tile_stats_majmin(codes, weights, auxc, ti, t["tile_j"],
+                                 t["emit"], **kw)
+        assert_stats_match(_np(st), jax_stats(c, "codes"))
+        return
     with pytest.raises(exc):
         K.tile_stats_majmin(codes, weights, auxc, ti, t["tile_j"],
                             t["emit"], **kw)
@@ -308,4 +314,7 @@ def test_cpu_wrapper_launches_nothing():
     c, t = _cpu_args()
     K.tile_stats_majmin(t["codes"], t["weights"], t["auxc"], t["tile_i"],
                         t["tile_j"], t["emit"], **c["kw"])
-    assert K.launches == {"ld_majmin_codes": 0, "ld_majmin_planes": 0}
+    assert set(K.launches) == {"ld_majmin_codes", "ld_majmin_planes",
+                               "ld_majmin_codes_lo_int8",
+                               "ld_majmin_planes_lo_int8"}
+    assert not any(K.launches.values())

@@ -297,9 +297,10 @@ def test_cuda_default_without_card_is_an_error(tmp_path, capsys):
         run(path)
 
 
-@pytest.mark.parametrize("flag", ["--stats-only", "--max-distance=10",
-                                  "--checkpoint", "--devices", "--top",
-                                  "--stream-ingest", "--chrom", "--verbose"])
+@pytest.mark.parametrize("flag", ["--max-distance-bp", "--max-distance=10",
+                                  "--checkpoint", "--devices",
+                                  "--cross-regions", "--stream-ingest",
+                                  "--chrom", "--verbose"])
 def test_cli_flag_not_yet_ported(flag, capsys):
     assert cli.main(["--file", "x.vcf", "--device", "cpu", flag]) == 2
     err = capsys.readouterr().err
@@ -323,9 +324,14 @@ def test_session_raises_for_inputs_off_the_slice():
     assert sess.phase_tiles["general"] > 0
     assert sess.summarize()["n_pairs"] > 0
     clean = np.where(aln == 5, 0, aln).astype(np.int8)
-    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-        LdSession(clean, w * 0.3, sm,
-                  DriverConfig(tile=32, weight_quant="lo_int8"), device="cpu")
+    # lo_int8 is ported: the session packs its weights and runs.
+    wl = (np.random.default_rng(1).random(40) + 0.05).astype(np.float32)
+    sess = LdSession(clean, wl, sm,
+                     DriverConfig(tile=32, weight_quant="lo_int8"),
+                     device="cpu")
+    assert sess.kernel_kw["wquant"] == "lo_int8"
+    assert tuple(sess.weights_dev.shape) == (3, 64)
+    assert sess.summarize()["n_pairs"] > 0
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         LdSession(clean, None, sm, DriverConfig(tile=32), device="cpu")
 
@@ -334,9 +340,12 @@ def test_cli_large_input_and_lo_int8_exit_not_ported(tmp_path, monkeypatch,
                                                      capsys):
     path = tmp_path / "t4.fasta"
     write_fasta(path, ALL_FASTAS["t4"])
+    # lo_int8 is ported: the tiled engine's TSV holds the golden records.
+    out = tmp_path / "lo.tsv"
     assert cli.main(["--file", str(path), "--device", "cpu", "--engine",
-                     "tiled", "--weight-quant", "lo_int8"]) == 2
-    assert "queue 2 item 5" in capsys.readouterr().err
+                     "tiled", "--tile", "16", "--weight-quant", "lo_int8",
+                     "--pair-output", str(out)]) == 0
+    assert out.read_text() == _golden_tsv("t4")
     import weightedld_tpu_torch.pipeline as pipe
 
     monkeypatch.setattr(pipe, "_LARGE_CELLS", 10)

@@ -11,9 +11,13 @@ the tile pairs whose UNKNOWN codes it does not cover.
 Supported flags: ``--file``, ``--min-acgt``, ``--min-variability``,
 ``--unweighted``, ``--r2-threshold``, ``--pair-output``, ``--engine
 {auto,dense,tiled}``, ``--tile``, ``--seq-chunk``, ``--tiles-per-batch``,
-``--weight-quant``, ``--ndigits``, ``--weights-output`` and the port's
+``--weight-quant``, ``--ndigits``, ``--weights-output``, the port's
 ``--device`` (default ``cuda``; no card is an error, never a silent CPU
-run).  Every other flag of the JAX CLI exits 2 with "not yet ported".
+run), and the analytics output modes of ``weightedld_tpu/cli.py:857-1058``,
+one per run: ``--stats-only`` (JSON summary), ``--top K``, ``--ld-decay
+EDGES``, ``--r2-hist EDGES``, ``--prune-r2 THR`` with ``--prune-rule``, and
+``--matrix-output`` with ``--matrix-dtype``.  Every other flag of the JAX
+CLI exits 2 with "not yet ported".
 
 Output order: the dense engine emits pairs in (site_a, site_b) row-major
 order like the Python reference; the tiled engine in tile order like the
@@ -23,17 +27,17 @@ Rust reference's PairStore (``lib.rs:523-576``).
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import sys
+import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
 
 # Flags of the JAX CLI that this port does not take yet -> ROADMAP item.
 NOT_PORTED = {
-    **dict.fromkeys(("--stats-only", "--matrix-output", "--matrix-dtype",
-                     "--ld-decay", "--r2-hist", "--prune-r2", "--prune-rule",
-                     "--top"), "queue 1 item 8 (analytics)"),
     **dict.fromkeys(("--max-distance", "--max-distance-bp",
                      "--cross-regions"),
                     "queue 1 item 9 (windowed and cross plans)"),
@@ -96,10 +100,43 @@ def build_parser() -> argparse.ArgumentParser:
                             "int8x3"),
                    default="none",
                    help="weighted-pass arithmetic of the tiled kernel: none "
-                   "= int8x3 (full accuracy), split_bf16, int8 (lossy); "
-                   "lo_int8 is not ported yet")
+                   "= int8x3 (full accuracy), split_bf16, lo_int8 and int8 "
+                   "(lossy)")
     p.add_argument("--ndigits", type=int, default=4,
                    help="output rounding digits [default 4, as reference]")
+    p.add_argument("--stats-only", action="store_true",
+                   help="print a JSON summary instead of per-pair records")
+    p.add_argument("--matrix-output", type=Path, default=None,
+                   help="write full square LD matrices (d, d_prime, r2 as "
+                   "[S,S] with NaN off-pairs, keep mask, site_map) to this "
+                   ".npz instead of per-pair records; O(S^2) host memory, "
+                   "so bounded to S <= 32768")
+    p.add_argument("--matrix-dtype", choices=("float32", "float16"),
+                   default="float32",
+                   help="matrix export precision: float16 halves the "
+                   "device->host transfer and file size (values within "
+                   "2^-11 relative of float32) [default float32]")
+    p.add_argument("--ld-decay", type=str, default=None, metavar="EDGES",
+                   help="print a JSON LD-decay curve (kept-pair count, mean "
+                   "r2 and mean |D'| per distance bin) instead of pair "
+                   "records; EDGES = comma-separated ascending bin edges in "
+                   "site_map units (bp for VCF), e.g. 0,1000,10000,100000")
+    p.add_argument("--r2-hist", type=str, default=None, metavar="EDGES",
+                   help="print a JSON histogram of r2 over surviving pairs "
+                   "(the way to pick a threshold); EDGES = comma-separated "
+                   "ascending bin edges, e.g. 0,0.05,0.1,0.2,0.5,1.01")
+    p.add_argument("--prune-r2", type=float, default=None, metavar="THR",
+                   help="LD pruning: print the positions of a subset of "
+                   "sites in which no surviving pair has r2 > THR (greedy, "
+                   "PLINK --indep-pairwise style)")
+    p.add_argument("--prune-rule", choices=("maf", "first"), default="maf",
+                   help="which endpoint of a conflicting pair to drop: "
+                   "'maf' = the lower-minor-allele-frequency site "
+                   "(default), 'first' = always the later site")
+    p.add_argument("--top", type=int, default=None, metavar="K",
+                   help="emit only the K strongest surviving pairs by r2 "
+                   "(descending), threshold-free; the tiled engine selects "
+                   "on the device, O(K) host traffic per batch")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default; fails without a "
                    "card) or cpu (the kernels' plain PyTorch versions)")
@@ -114,6 +151,61 @@ def _not_ported(argv: list[str]) -> str | None:
     return None
 
 
+def _json_line(out: dict, t0: float) -> None:
+    out["elapsed_s"] = time.monotonic() - t0
+    print(json.dumps(out))
+
+
+def _empty_mode_output(args, res, n: int, s: int) -> int:
+    """Fewer than 2 sites: each output mode writes its own empty result
+    (``weightedld_tpu/cli.py:749-818``)."""
+    from .io.writer import open_text_output, pair_header
+    from .runtime.driver import validate_decay_edges, validate_hist_edges
+
+    if args.matrix_output is not None:
+        np.savez_compressed(
+            args.matrix_output, site_map=res.site_map,
+            keep=np.zeros((s, s), dtype=bool),
+            **{k: np.full((s, s), np.nan, dtype=np.float32)
+               for k in ("d", "d_prime", "r2")})
+        return 0
+    if args.stats_only:
+        print(json.dumps({"n_sequences": n, "n_sites": s, "n_pairs": 0,
+                          "n_over_threshold": 0,
+                          "r2_sum_over_threshold": 0.0, "r2_max": None}))
+        return 0
+    if args.ld_decay is not None:
+        try:
+            edges = validate_decay_edges(args.ld_decay.split(","))
+        except ValueError as e:
+            print(f"error: --ld-decay: {e}", file=sys.stderr)
+            return 2
+        nb = len(edges) - 1
+        print(json.dumps({"edges": list(edges), "n_pairs": [0] * nb,
+                          "r2_sum": [0.0] * nb, "r2_mean": [None] * nb,
+                          "abs_d_prime_sum": [0.0] * nb,
+                          "abs_d_prime_mean": [None] * nb,
+                          "n_d_prime_finite": [0] * nb}))
+        return 0
+    if args.r2_hist is not None:
+        try:
+            edges = validate_hist_edges(args.r2_hist.split(","))
+        except ValueError as e:
+            print(f"error: --r2-hist: {e}", file=sys.stderr)
+            return 2
+        print(json.dumps({"edges": list(edges),
+                          "n_pairs": [0] * (len(edges) - 1)}))
+        return 0
+    body = pair_header() + "\n"
+    if args.prune_r2 is not None:
+        # A lone site is trivially conflict-free.
+        body = "".join(f"{int(p)}\n" for p in res.site_map)
+    with open_text_output(args.pair_output if args.pair_output
+                          else "-") as fh:
+        fh.write(body)
+    return 0
+
+
 def main(argv=None, timer=None) -> int:
     """CLI entry point; ``timer`` (a ``runtime.profiling.StageTimer``)
     collects the per-stage spans."""
@@ -126,6 +218,23 @@ def main(argv=None, timer=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(format="[%(levelname)s] %(asctime)s %(message)s",
                         level=logging.ERROR, stream=sys.stderr)
+
+    # One output mode per invocation (weightedld_tpu/cli.py:363-399).
+    modes = [name for name, on in (
+        ("--matrix-output", args.matrix_output is not None),
+        ("--stats-only", args.stats_only),
+        ("--ld-decay", args.ld_decay is not None),
+        ("--r2-hist", args.r2_hist is not None),
+        ("--top", args.top is not None),
+        ("--prune-r2", args.prune_r2 is not None),
+    ) if on]
+    if len(modes) > 1:
+        print(f"error: {' and '.join(modes)} are mutually exclusive "
+              "output modes", file=sys.stderr)
+        return 2
+    if args.matrix_output is not None and args.r2_threshold is not None:
+        print("warning: --matrix-output writes complete matrices; "
+              "--r2-threshold is ignored in this mode", file=sys.stderr)
 
     import torch
 
@@ -150,6 +259,7 @@ def main(argv=None, timer=None) -> int:
                     min_variability=args.min_variability,
                     unweighted=args.unweighted,
                     r2_threshold=args.r2_threshold)
+    t0 = time.monotonic()
     try:
         res = prepare(args.file, cfg, timer=timer)
     except NotImplementedError as e:
@@ -169,6 +279,8 @@ def main(argv=None, timer=None) -> int:
                                 else "-")
 
     if s < 2:
+        if modes:
+            return _empty_mode_output(args, res, n, s)
         with pair_out() as fh:
             fh.write(pair_header() + "\n")
         return 0
@@ -176,39 +288,164 @@ def main(argv=None, timer=None) -> int:
     engine = args.engine
     if engine == "auto":
         engine = "dense" if s <= 2048 else "tiled"
-    if args.weight_quant != "none" and engine != "tiled":
+    if args.weight_quant != "none" and engine != "tiled" \
+            and args.matrix_output is None:
         print(f"warning: --weight-quant only applies to the tiled engine; "
               f"the '{engine}' engine runs the exact path (add --engine "
               "tiled to use it)", file=sys.stderr)
 
-    if engine == "dense":
-        from .core.ld_dense import extract_records, ld_all_pairs_dense
-
-        with timer.stage("scan"):
-            stats = ld_all_pairs_dense(
-                torch.from_numpy(np.ascontiguousarray(res.alignment)).to(
-                    device),
-                torch.from_numpy(np.asarray(res.weights, np.float32)).to(
-                    device))
-            records = extract_records(stats, res.site_map, args.r2_threshold)
-        with timer.stage("write"), pair_out() as fh:
-            write_pairs(records, fh, ndigits=args.ndigits)
-        return 0
-
-    from .runtime.driver import DriverConfig, run_to_tsv
+    from .runtime.driver import (DriverConfig, LdSession, run_to_tsv,
+                                 validate_decay_edges, validate_hist_edges)
 
     dcfg = DriverConfig(tile=args.tile,
                         tiles_per_shard_batch=args.tiles_per_batch,
                         r2_threshold=args.r2_threshold,
                         seq_chunk=args.seq_chunk,
                         weight_quant=args.weight_quant)
-    try:
-        run_to_tsv(res.alignment, res.weights, res.site_map,
-                   args.pair_output if args.pair_output else "-", dcfg,
-                   device=device, ndigits=args.ndigits, timer=timer)
-    except NotImplementedError as e:
-        print(f"error: not yet ported: {e}", file=sys.stderr)
-        return 2
+
+    def session(r2_threshold=None) -> LdSession:
+        """The tiled session of the analytics modes, which set their own
+        threshold."""
+        with timer.stage("upload"):
+            return LdSession(res.alignment, res.weights, res.site_map,
+                             replace(dcfg, r2_threshold=r2_threshold),
+                             device=device)
+
+    def dense_stats():
+        from .core.ld_dense import ld_all_pairs_dense
+
+        return ld_all_pairs_dense(
+            torch.from_numpy(np.ascontiguousarray(res.alignment)).to(device),
+            torch.from_numpy(np.asarray(res.weights, np.float32)).to(device))
+
+    if args.matrix_output is not None:
+        if s > 32768:
+            print(f"error: --matrix-output needs O(S^2) host memory; "
+                  f"S={s} > 32768 kept sites — use the record outputs",
+                  file=sys.stderr)
+            return 2
+        sess = session()
+        with timer.stage("scan"):
+            mats = sess.matrices(dtype=np.dtype(args.matrix_dtype))
+        with timer.stage("write"):
+            np.savez_compressed(args.matrix_output, site_map=res.site_map,
+                                **mats)
+        return 0
+
+    if args.stats_only:
+        if engine == "dense":
+            with timer.stage("scan"):
+                st = dense_stats()
+                # Only the upper triangle counts.
+                keep = torch.triu(st.keep, diagonal=1)
+                over = keep if args.r2_threshold is None \
+                    else keep & (st.r2 > args.r2_threshold)
+                out = {"n_sequences": n, "n_sites": s,
+                       "n_pairs": int(keep.sum()),
+                       "n_over_threshold": int(over.sum()),
+                       "r2_sum_over_threshold": float(st.r2[over].sum()),
+                       "r2_max": float(st.r2[keep].max()) if bool(keep.any())
+                       else None}
+        else:
+            sess = session(args.r2_threshold)
+            with timer.stage("scan"):
+                out = sess.summarize()
+        _json_line(out, t0)
+        return 0
+
+    if args.ld_decay is not None:
+        if args.r2_threshold is not None:
+            print("warning: --ld-decay is threshold-free; --r2-threshold "
+                  "is ignored in this mode", file=sys.stderr)
+        if args.engine == "dense":
+            print("warning: --ld-decay always runs the tiled session engine "
+                  "(--engine dense ignored)", file=sys.stderr)
+        try:
+            # Before the upload: a bad edge list costs nothing.
+            edges = validate_decay_edges(args.ld_decay.split(","))
+        except ValueError as e:
+            print(f"error: --ld-decay: {e}", file=sys.stderr)
+            return 2
+        sess = session()
+        try:
+            with timer.stage("scan"):
+                out = sess.ld_decay(edges)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        _json_line(out, t0)
+        return 0
+
+    if args.r2_hist is not None:
+        try:
+            edges = validate_hist_edges(args.r2_hist.split(","))
+        except ValueError as e:
+            print(f"error: --r2-hist: {e}", file=sys.stderr)
+            return 2
+        sess = session()
+        with timer.stage("scan"):
+            out = sess.r2_histogram(edges)
+        _json_line(out, t0)
+        return 0
+
+    if args.prune_r2 is not None:
+        if not np.isfinite(args.prune_r2):
+            print(f"error: --prune-r2 needs a finite threshold, got "
+                  f"{args.prune_r2}", file=sys.stderr)
+            return 2
+        if args.r2_threshold is not None:
+            print("warning: --prune-r2 supplies its own threshold; "
+                  "--r2-threshold is ignored in this mode", file=sys.stderr)
+        if args.engine == "dense":
+            print("warning: --prune-r2 always runs the tiled session engine "
+                  "(--engine dense ignored)", file=sys.stderr)
+        if len(np.unique(res.site_map)) != s:
+            print("error: --prune-r2 needs unique site positions "
+                  "(multi-chromosome input? run per chromosome)",
+                  file=sys.stderr)
+            return 2
+        sess = session()
+        with timer.stage("scan"):
+            kept = sess.prune(args.prune_r2, rule=args.prune_rule)
+        with pair_out() as fh:
+            fh.write("".join(f"{int(p)}\n" for p in kept))
+        return 0
+
+    if args.top is not None:
+        if args.top <= 0:
+            print("error: --top needs a positive K", file=sys.stderr)
+            return 2
+        if args.r2_threshold is not None:
+            print("warning: --top is threshold-free; --r2-threshold is "
+                  "ignored in this mode", file=sys.stderr)
+        from .core.ld_dense import LdRecords, extract_records
+
+        if engine == "dense":
+            with timer.stage("scan"):
+                rec = extract_records(dense_stats(), res.site_map)
+            order = np.argsort(-np.asarray(rec.r2), kind="stable")[:args.top]
+            rec = LdRecords(*(np.asarray(f)[order] for f in rec))
+        else:
+            sess = session()
+            with timer.stage("scan"):
+                rec = sess.top_pairs(args.top)
+        with pair_out() as fh:
+            write_pairs(rec, fh, ndigits=args.ndigits)
+        return 0
+
+    if engine == "dense":
+        from .core.ld_dense import extract_records
+
+        with timer.stage("scan"):
+            records = extract_records(dense_stats(), res.site_map,
+                                      args.r2_threshold)
+        with timer.stage("write"), pair_out() as fh:
+            write_pairs(records, fh, ndigits=args.ndigits)
+        return 0
+
+    run_to_tsv(res.alignment, res.weights, res.site_map,
+               args.pair_output if args.pair_output else "-", dcfg,
+               device=device, ndigits=args.ndigits, timer=timer)
     return 0
 
 

@@ -55,9 +55,14 @@
 //   * Built with -fmad=false and without --use_fast_math; the pair algebra
 //     is that of ld_majmin.cu (reciprocal multiplied in, 0.95 as an f32
 //     compare).
-//   * Float weight passes (bf16-exact, split_bf16) accumulate in f32 in
-//     sequence order, like the factorized kernel: within f32 rounding of
-//     the reference, not bit for bit.
+//   * Float weight passes (bf16-exact, split_bf16, and lo_int8's w_hi pass)
+//     accumulate in f32 one staged word at a time, like the factorized
+//     kernel: the f32 sum of the word's selected weights (column order) is
+//     read from a 16-entry table per word and 4-bit byte mask.  Within f32
+//     rounding of the reference, not bit for bit; exact, and so equal to
+//     the plain version, wherever the f32 partial sums are.  lo_int8 adds
+//     its int8 residual pass as F + alpha * J once per seq chunk
+//     (pallas_ld.py:307-315).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +81,12 @@ constexpr int kPMax = 5;           // allele planes (codes 0..4)
 // per pair).
 constexpr int kPlaneWords = kBM * kKWP + 1;
 constexpr int kValid = kPMax;      // plane slot of the validity words
+
+// 4-bit mask of a word of four 0/1 bytes (byte b -> bit b): the multiply
+// moves each byte's bit to bits 24..27 and leaves its cross terms below.
+__device__ __forceinline__ uint32_t mask4(uint32_t x) {
+  return (x * 0x01020408u) >> 24;
+}
 
 struct Params {
   const int8_t* codes;    // [s_pad, n_pad] site-major codes   (codes)
@@ -221,8 +232,10 @@ __device__ __forceinline__ void major_dmin(const int32_t (&cnt)[kPMax],
 }
 
 // NLEV > 0: int8 passes, cells J_l = dp4a((A_sel & B_sel), q_l) (UNIT: one
-// count pass with q = 1 over all of N); NFLT > 0: f32 passes.  PRE selects
-// the operand source: false = codes, true = preplaned one-hot planes.
+// count pass with q = 1 over all of N); NFLT > 0: f32 passes; both
+// (lo_int8, NLEV = NFLT = 1): the w_hi pass and the residual level.  PRE
+// selects the operand source: false = codes, true = preplaned one-hot
+// planes.
 // The second launch bound is the resident CTAs per SM the register
 // allocation must allow: unbounded, ptxas gave the preplaned int8x3 variant
 // 193-200 registers (one CTA per SM, 2.4x slower); the unit variants fit
@@ -232,10 +245,13 @@ __global__ void __launch_bounds__(kThreads, UNIT ? 3 : 2)
 ld_general_kernel(const Params p) {
   constexpr int NA = NLEV > 0 ? NLEV : 1;
   constexpr int NF = NFLT > 0 ? NFLT : 1;
+  constexpr bool LO = NLEV > 0 && NFLT > 0;
   __shared__ uint32_t sA[(kPMax + 1) * kPlaneWords];
   __shared__ uint32_t sB[(kPMax + 1) * kPlaneWords];
   __shared__ uint32_t sQ[NA][kKW];
-  __shared__ float sW[NF][kKS];
+  // Float passes: per staged word and 4-bit byte mask, the f32 sum of the
+  // selected weights of its four columns, added in column order.
+  __shared__ float sT[NF][kKW][16];
 
   const int bps = p.blocks_per_side;
   const int64_t kt = blockIdx.x / (bps * bps);
@@ -367,10 +383,16 @@ ld_general_kernel(const Params p) {
         }
       }
       if (NFLT > 0) {
-        for (int e = tid; e < NF * kKS; e += kThreads) {
-          const int f = e / kKS;
-          const int j = e % kKS;
-          sW[f][j] = j < width ? p.wf[(int64_t)f * p.n_pad + k0 + j] : 0.0f;
+        for (int e = tid; e < NF * kKW * 16; e += kThreads) {
+          const int f = e / (kKW * 16);
+          const int w = (e / 16) % kKW;
+          const int m = e % 16;
+          float t = 0.0f;
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            if (((m >> b) & 1) && 4 * w + b < width)
+              t = t + p.wf[(int64_t)f * p.n_pad + k0 + 4 * w + b];
+          sT[f][w][m] = t;
         }
       }
       __syncthreads();
@@ -402,7 +424,8 @@ ld_general_kernel(const Params p) {
               }
             }
         }
-      } else {
+      }
+      if (NFLT > 0) {
         for (int w = 0; w < kKW; ++w) {
 #pragma unroll
           for (int r = 0; r < 2; ++r)
@@ -412,25 +435,19 @@ ld_general_kernel(const Params p) {
               const uint32_t ad = sA[off[r][c][1] + w];
               const uint32_t bm = sB[off[r][c][2] + w];
               const uint32_t bd = sB[off[r][c][3] + w];
-              const uint32_t x[4] = {am & bm, am & bd, ad & bm, ad & bd};
+              const uint32_t m[4] = {mask4(am & bm), mask4(am & bd),
+                                     mask4(ad & bm), mask4(ad & bd)};
 #pragma unroll
-              for (int b = 0; b < 4; ++b) {
-                const int sh = 8 * b;
+              for (int f = 0; f < NF; ++f)
 #pragma unroll
-                for (int f = 0; f < NF; ++f) {
-                  const float wv = sW[f][4 * w + b];
-#pragma unroll
-                  for (int e = 0; e < 4; ++e)
-                    F[f][r][c][e] += wv * (float)((x[e] >> sh) & 1u);
-                }
-              }
+                for (int e = 0; e < 4; ++e) F[f][r][c][e] += sT[f][w][m[e]];
             }
         }
       }
     }
 
-    // Combine once per seq chunk (pallas_ld.py:290-302); the unit kernel's
-    // single chunk converts its int32 joint once (:405-422).
+    // Combine once per seq chunk (pallas_ld.py:290-302, 307-315); the unit
+    // kernel's single chunk converts its int32 joint once (:405-422).
     float a[NA];
 #pragma unroll
     for (int l = 0; l < NA; ++l) a[l] = (NLEV > 0 && !UNIT) ? p.scale[l] : 1.0f;
@@ -443,6 +460,8 @@ ld_general_kernel(const Params p) {
           float cells;
           if (UNIT) {
             cells = (float)J[0][r][c][e];
+          } else if (LO) {
+            cells = F[0][r][c][e] + a[0] * (float)J[0][r][c][e];
           } else if (NLEV > 0) {
             cells = a[0] * (float)J[0][r][c][e];
 #pragma unroll
@@ -493,6 +512,7 @@ int dispatch(const Params& p, int k, int nlev, int nflt, cudaStream_t stream) {
   if (nflt == 0 && nlev == 3) return launch<3, 0, PRE, false>(p, k, stream);
   if (nlev == 0 && nflt == 1) return launch<0, 1, PRE, false>(p, k, stream);
   if (nlev == 0 && nflt == 2) return launch<0, 2, PRE, false>(p, k, stream);
+  if (nlev == 1 && nflt == 1) return launch<1, 1, PRE, false>(p, k, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -539,7 +559,9 @@ bool make_params(Params& p, const void* codes, const void* planes,
 // one-hot planes of build_planes_tiled) is non-null.  `packed_planes`
 // holds the P plane codes, 3 bits each (plane s at bits 3s..3s+2).  nlev
 // int8 cascade levels (2 or 3, `q` and `scale`) or nflt f32 passes (1 or
-// 2, `wf`).  Returns cudaGetLastError() after the launch (0 = launched).
+// 2, `wf`), or lo_int8 (nlev = nflt = 1: w_hi in `wf`, the residual level
+// in `q` and `scale`).  Returns cudaGetLastError() after the launch (0 =
+// launched).
 extern "C" int ld_general(const void* codes, const void* planes, const void* q,
                           const void* scale, const void* wf,
                           const void* tile_i, const void* tile_j,

@@ -16,7 +16,10 @@
 // Weight modes: NLEV int8 passes (unit weights: one count pass; int8 / int8x3
 // cascades: two or three int8 x int8 -> int32 passes combined in f32 as
 // sum_l a_l * J_l once per seq_chunk), or NFLT f32 passes (bf16-exact weights:
-// one pass; split_bf16: w_hi and w_lo passes) accumulated in f32.
+// one pass; split_bf16: w_hi and w_lo passes) accumulated in f32, or both
+// (lo_int8, NLEV = NFLT = 1: the f32 pass of w_hi = bf16(w) plus one int8
+// pass of the quantized residual q, combined as F + alpha * J once per
+// seq_chunk, pallas_ld.py:926-930 and 1173-1177).
 //
 // What bounds it on the H100.  At the main-path shape (N = 1,000 sequences,
 // int8x3) each pair needs 4 cells x 3 levels x N/4 = 3,000 packed int8 dot
@@ -45,6 +48,13 @@
 //     as JAX does.
 //   * The 0.95 skip rule is an f32 compare (0.95f): at P = 19/20 the f32
 //     value equals f32(0.95) and the pair is skipped.
+//   * Float weight passes accumulate in f32 one staged word at a time: the
+//     f32 sum of the word's selected weights (column order) comes from a
+//     16-entry table per word, indexed by the 4-bit mask of its 0/1 bytes
+//     (one shared-memory read and one add per cell and word instead of four
+//     multiply-adds).  Where the f32 partial sums are exact, as for weights
+//     of a bounded dynamic range, this equals the plain version's float64
+//     sum rounded once; elsewhere it is within f32 rounding.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,11 +68,18 @@ constexpr int kKS = 64;            // sequence columns staged per step
 constexpr int kKW = kKS / 4;       // packed 32-bit words per staged row
 constexpr int kKWP = kKW + 1;      // padded row stride: no bank conflicts
 
+// 4-bit mask of a word of four 0/1 bytes (byte b -> bit b): the multiply
+// moves each byte's bit to bits 24..27 and leaves its cross terms below.
+__device__ __forceinline__ uint32_t mask4(uint32_t x) {
+  return (x * 0x01020408u) >> 24;
+}
+
 struct Params {
   const int8_t* codes;    // [s_pad, n_pad] site-major codes       (codes)
   const int8_t* q;        // [nlev, n_pad] int8 cascade levels     (codes)
   const int8_t* planes;   // [2*s_pad, n_pad] [maj; dmin] per tile (planes)
   const int8_t* xq;       // [nlev, 2*s_pad, n_pad] planes * q_l   (planes)
+                          // lo_int8: the [n_pad] q row instead
   const float* scale;     // [nlev] cascade scales a_l
   const float* wf;        // [nflt, n_pad] f32 pass weights
   const int32_t* auxc;    // [s_pad, 3] (major, dmin, distinct)
@@ -118,17 +135,25 @@ __device__ __forceinline__ void pair_algebra(float n_mm, float n_md, float n_dm,
 }
 
 // NLEV > 0: int8 passes (A operand = indicator * q_l); NFLT > 0: f32 passes
-// (A operand = indicator, weights staged separately).  PRE selects the
-// operand source: false = codes + aux (the _ld_kernel_mm build), true =
-// precomputed planes / xq (the _ld_kernel_mm_pre inputs).
+// (A operand = indicator, weights staged separately); both (LO, lo_int8):
+// sA holds indicator * q and sI the indicator.  PRE selects the operand
+// source: false = codes + aux (the _ld_kernel_mm build), true =
+// precomputed planes / xq (the _ld_kernel_mm_pre inputs; under LO the
+// planes and the q row, with planes * q built while staging, as JAX builds
+// xq in-kernel for this mode: the same int8 bytes without a second
+// [2*s_pad, n_pad] array in device memory).
 template <int NLEV, int NFLT, bool PRE>
 __global__ void __launch_bounds__(kThreads)
 ld_majmin_kernel(const Params p) {
   constexpr int NA = NLEV > 0 ? NLEV : 1;
   constexpr int NF = NFLT > 0 ? NFLT : 1;
+  constexpr bool LO = NLEV > 0 && NFLT > 0;
   __shared__ uint32_t sA[NA][2][kBM][kKWP];
+  __shared__ uint32_t sI[LO ? 2 : 1][kBM][kKWP];
   __shared__ uint32_t sB[2][kBN][kKWP];
-  __shared__ float sW[NF][kKS];
+  // Float passes: per staged word and 4-bit byte mask, the f32 sum of the
+  // selected weights of its four columns, added in column order.
+  __shared__ float sT[NF][kKW][16];
   __shared__ int32_t sAuxA[kBM][2];
   __shared__ int32_t sAuxB[kBN][2];
 
@@ -215,7 +240,18 @@ ld_majmin_kernel(const Params p) {
         if (PRE) {
           const int64_t ra = (int64_t)ti * 2 * tile + la;
           const int64_t rb = (int64_t)tj * 2 * tile + lb;
-          if (NLEV > 0) {
+          if constexpr (LO) {
+            // 0/1 plane bytes times 0xff are byte masks (no carries).
+            const uint32_t pm =
+                va ? ld_word(p.planes, ra * p.n_pad + col) : 0u;
+            const uint32_t pd =
+                va ? ld_word(p.planes, (ra + tile) * p.n_pad + col) : 0u;
+            const uint32_t qw = va ? ld_word(p.xq, col) : 0u;
+            sA[0][0][row][w] = (pm * 0xffu) & qw;
+            sA[0][1][row][w] = (pd * 0xffu) & qw;
+            sI[0][row][w] = pm;
+            sI[1][row][w] = pd;
+          } else if (NLEV > 0) {
 #pragma unroll
             for (int l = 0; l < NA; ++l) {
               const int8_t* xl = p.xq + l * plane_level;
@@ -255,6 +291,10 @@ ld_majmin_kernel(const Params p) {
               sA[l][0][row][w] = ema & qw;  // one-hot * q_l fits int8
               sA[l][1][row][w] = eda & qw;
             }
+            if constexpr (LO) {
+              sI[0][row][w] = ema & 0x01010101u;
+              sI[1][row][w] = eda & 0x01010101u;
+            }
           } else {
             sA[0][0][row][w] = ema & 0x01010101u;
             sA[0][1][row][w] = eda & 0x01010101u;
@@ -264,10 +304,16 @@ ld_majmin_kernel(const Params p) {
         }
       }
       if (NFLT > 0) {
-        for (int s = tid; s < NF * kKS; s += kThreads) {
-          const int f = s / kKS;
-          const int j = s % kKS;
-          sW[f][j] = j < width ? p.wf[(int64_t)f * p.n_pad + k0 + j] : 0.0f;
+        for (int s = tid; s < NF * kKW * 16; s += kThreads) {
+          const int f = s / (kKW * 16);
+          const int w = (s / 16) % kKW;
+          const int m = s % 16;
+          float t = 0.0f;
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            if (((m >> b) & 1) && 4 * w + b < width)
+              t = t + p.wf[(int64_t)f * p.n_pad + k0 + 4 * w + b];
+          sT[f][w][m] = t;
         }
       }
       __syncthreads();
@@ -297,13 +343,19 @@ ld_majmin_kernel(const Params p) {
             }
           }
         }
-      } else {
+      }
+      if (NFLT > 0) {
         for (int w = 0; w < kKW; ++w) {
           uint32_t am[2], ad[2], bm[2], bd[2];
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            am[r] = sA[0][0][ty + 16 * r][w];
-            ad[r] = sA[0][1][ty + 16 * r][w];
+            if constexpr (LO) {
+              am[r] = sI[0][ty + 16 * r][w];
+              ad[r] = sI[1][ty + 16 * r][w];
+            } else {
+              am[r] = sA[0][0][ty + 16 * r][w];
+              ad[r] = sA[0][1][ty + 16 * r][w];
+            }
           }
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
@@ -311,27 +363,26 @@ ld_majmin_kernel(const Params p) {
             bd[c] = sB[1][tx + 16 * c][w];
           }
 #pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            const int sh = 8 * b;
+          for (int r = 0; r < 2; ++r)
 #pragma unroll
-            for (int f = 0; f < NF; ++f) {
-              const float wv = sW[f][4 * w + b];
+            for (int c = 0; c < 2; ++c) {
+              const uint32_t m0 = mask4(am[r] & bm[c]);
+              const uint32_t m1 = mask4(am[r] & bd[c]);
+              const uint32_t m2 = mask4(ad[r] & bm[c]);
+              const uint32_t m3 = mask4(ad[r] & bd[c]);
 #pragma unroll
-              for (int r = 0; r < 2; ++r)
-#pragma unroll
-                for (int c = 0; c < 2; ++c) {
-                  F[f][r][c][0] += wv * (float)(((am[r] & bm[c]) >> sh) & 1u);
-                  F[f][r][c][1] += wv * (float)(((am[r] & bd[c]) >> sh) & 1u);
-                  F[f][r][c][2] += wv * (float)(((ad[r] & bm[c]) >> sh) & 1u);
-                  F[f][r][c][3] += wv * (float)(((ad[r] & bd[c]) >> sh) & 1u);
-                }
+              for (int f = 0; f < NF; ++f) {
+                F[f][r][c][0] += sT[f][w][m0];
+                F[f][r][c][1] += sT[f][w][m1];
+                F[f][r][c][2] += sT[f][w][m2];
+                F[f][r][c][3] += sT[f][w][m3];
+              }
             }
-          }
         }
       }
     }
 
-    // Combine once per seq chunk (pallas_ld.py:912-920, 937-940).
+    // Combine once per seq chunk (pallas_ld.py:912-920, 926-930, 937-940).
     float a[NA];
 #pragma unroll
     for (int l = 0; l < NA; ++l) a[l] = NLEV > 0 ? p.scale[l] : 0.0f;
@@ -342,7 +393,9 @@ ld_majmin_kernel(const Params p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float cells;
-          if (NLEV > 0) {
+          if (LO) {
+            cells = F[0][r][c][e] + a[0] * (float)J[0][r][c][e];
+          } else if (NLEV > 0) {
             cells = a[0] * (float)J[0][r][c][e];
 #pragma unroll
             for (int l = 1; l < NA; ++l)
@@ -394,6 +447,7 @@ int dispatch(const Params& p, int k, int nlev, int nflt, cudaStream_t stream) {
   if (nflt == 0 && nlev == 3) return launch<3, 0, PRE>(p, k, stream);
   if (nlev == 0 && nflt == 1) return launch<0, 1, PRE>(p, k, stream);
   if (nlev == 0 && nflt == 2) return launch<0, 2, PRE>(p, k, stream);
+  if (nlev == 1 && nflt == 1) return launch<1, 1, PRE>(p, k, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -439,7 +493,8 @@ extern "C" int ld_majmin_codes(const void* codes, const void* q,
   return dispatch<false>(p, k, nlev, nflt, static_cast<cudaStream_t>(stream));
 }
 
-// Entry for _ld_kernel_mm_pre: operands read from precomputed planes / xq.
+// Entry for _ld_kernel_mm_pre: operands read from precomputed planes / xq
+// (lo_int8, nlev = nflt = 1: xq is the [n_pad] int8 q row).
 extern "C" int ld_majmin_planes(const void* planes, const void* xq,
                                 const void* scale, const void* wf,
                                 const void* auxc, const void* tile_i,

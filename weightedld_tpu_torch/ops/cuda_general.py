@@ -39,17 +39,20 @@ from .cuda_ld import (
     ALL_PLANES,
     DEFAULT_SEQ_CHUNK,
     _cells_plain,
+    _a_operands,
     _check,
     _check_common,
     _float_rows,
+    _q_levels,
     _tile_rows,
     _weight_mode,
     finalize_cells,
 )
 
-# Launch counts per kernel entry point: the wrapper adds one where it
-# launches a kernel and nowhere else.
-launches = {"ld_general": 0, "ld_general_unit": 0, "ld_general_planes": 0}
+# Launch counts per kernel entry point, the lo_int8 variants under their own
+# names: the wrapper adds one where it launches a kernel and nowhere else.
+launches = {"ld_general": 0, "ld_general_unit": 0, "ld_general_planes": 0,
+            "ld_general_lo_int8": 0, "ld_general_planes_lo_int8": 0}
 
 
 def reset_launches() -> None:
@@ -132,11 +135,7 @@ def tile_stats_general_plain(src, weights, tile_i, tile_j, emit, *,
     cnt_b = torch.bmm(vx, yf.to(f64).transpose(1, 2)).round().to(
         torch.int64).reshape(k, t, p, t).transpose(1, 2)      # (u, i, j)
 
-    if kind == "int":
-        q = weights[:nlev].to(torch.int8)
-        a_ops = [xf * q[lv][None, None, :] for lv in range(nlev)]
-    else:
-        a_ops = [xf]
+    a_ops = _a_operands(xf, weights, kind, nlev)
     # The unit kernel accumulates its int32 joint over every chunk and
     # converts once: one chunk spanning N gives the same single rounding.
     chunk = yf.shape[-1] if kind == "unit" else seq_chunk
@@ -173,13 +172,14 @@ def _launch(name: str, entry: str, codes, planes_src, weights, tile_i,
     q = scale = wf = None
     nflt = 0
     if kind == "int":
-        q = weights[:nlev].to(torch.int8).contiguous()
+        q = _q_levels(weights, kind, nlev)
         scale = weights[nlev:2 * nlev, 0].contiguous()
-    elif kind in ("exact", "split"):
+    elif kind == "lo":
+        q = _q_levels(weights, kind, nlev)
+        scale = weights[2:3, 0].contiguous()
+    if kind in ("exact", "split", "lo"):
         wf = torch.stack(_float_rows(weights, kind)).contiguous()
-        nlev, nflt = 0, wf.shape[0]
-    else:
-        nlev = 1                                  # one int8 count pass
+        nflt = wf.shape[0]
     ptr = lambda t: 0 if t is None else t.data_ptr()
     packed = sum(c << (3 * s) for s, c in enumerate(planes))
     d = torch.empty((k, tile, tile), dtype=torch.float32, device=dev)
@@ -198,7 +198,7 @@ def _launch(name: str, entry: str, codes, planes_src, weights, tile_i,
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed with CUDA error {rc}")
     if k > 0:
-        launches[name] += 1
+        launches[name + ("_lo_int8" if kind == "lo" else "")] += 1
     return PairStats(d=d, d_prime=dp, r2=r2, keep=keep.view(torch.bool))
 
 

@@ -24,9 +24,9 @@ the four weighted {maj, dmin} cells factor into one (2T x 2T) contraction per
 weight pass.
 
 Weight layouts (``weights`` rows, all ``[rows, N_pad]`` float32, as JAX):
-unit / bf16-exact / split_bf16: 1 row (``pad_weights``); ``int8``: 4 rows
-q1 q2 a1 a2 and ``int8x3``: 6 rows q1..q3 a1..a3 (``pad_weights_int8``).
-``lo_int8`` is not ported yet and raises.
+unit / bf16-exact / split_bf16: 1 row (``pad_weights``); ``lo_int8``: 3
+rows w, q, alpha (``pad_weights_lo_int8``); ``int8``: 4 rows q1 q2 a1 a2 and
+``int8x3``: 6 rows q1..q3 a1..a3 (``pad_weights_int8``).
 """
 
 from __future__ import annotations
@@ -40,9 +40,10 @@ from ..core.paircore import PairStats
 DEFAULT_SEQ_CHUNK = 512
 ALL_PLANES = (0, 1, 2, 3, 4)
 
-# Launch counts per kernel entry point: each wrapper adds one where it
-# launches its kernel and nowhere else.
-launches = {"ld_majmin_codes": 0, "ld_majmin_planes": 0}
+# Launch counts per kernel entry point, the lo_int8 variants under their own
+# names: each wrapper adds one where it launches its kernel and nowhere else.
+launches = {"ld_majmin_codes": 0, "ld_majmin_planes": 0,
+            "ld_majmin_codes_lo_int8": 0, "ld_majmin_planes_lo_int8": 0}
 
 
 def reset_launches() -> None:
@@ -75,6 +76,29 @@ def pad_weights(weights: np.ndarray,
     n_pad = -(-n // seq_chunk) * seq_chunk
     out = np.zeros((1, n_pad), dtype=np.float32)
     out[0, :n] = weights
+    return out
+
+
+def pad_weights_lo_int8(weights: np.ndarray,
+                        seq_chunk: int = DEFAULT_SEQ_CHUNK) -> np.ndarray:
+    """``lo_int8`` weight packing, ``[3, N_pad]`` float32: row 0 = w, row 1 =
+    q, the bf16 residual ``w - bf16(w)`` quantized to int8, row 2 = its
+    scale alpha, so that ``w ~= bf16(w) + alpha * q`` (copy of
+    ``pallas_ld.py:108-135``).  The bf16 rounding is torch's ``float32 ->
+    bfloat16`` cast (round to nearest even, as ``ml_dtypes``); the rest is
+    the JAX package's numpy arithmetic, operation for operation."""
+    n = weights.shape[0]
+    n_pad = -(-n // seq_chunk) * seq_chunk
+    w32 = np.zeros(n_pad, dtype=np.float32)
+    w32[:n] = np.asarray(weights, dtype=np.float32)
+    w_hi = torch.from_numpy(w32).to(torch.bfloat16).to(torch.float32).numpy()
+    w_lo = w32 - w_hi
+    s = float(np.abs(w_lo).max())
+    out = np.zeros((3, n_pad), dtype=np.float32)
+    out[0] = w32
+    if s > 0.0:
+        out[1] = np.round(w_lo / s * 127.0).clip(-127, 127)
+        out[2] = s / 127.0
     return out
 
 
@@ -290,7 +314,9 @@ def pair_algebra(n_mm, n_md, n_dm, n_dd, keep):
 def _weight_mode(weights: torch.Tensor, exact_weights: bool,
                  unit_weights: bool, wquant: str) -> tuple[str, int]:
     """``(kind, nlev)`` of the weight passes, with JAX's precedence: unit,
-    then bf16-exact, then the int8 cascades, then split_bf16."""
+    then bf16-exact, then the int8 cascades, lo_int8 and split_bf16.
+    ``"lo"`` (lo_int8) has one float pass of ``bf16(w)`` and one int8 level
+    of the quantized residual (scale ``weights[2, 0]``)."""
     if unit_weights:
         kind, nlev, rows = "unit", 1, 1
     elif exact_weights:
@@ -301,9 +327,7 @@ def _weight_mode(weights: torch.Tensor, exact_weights: bool,
     elif wquant == "":
         kind, nlev, rows = "split", 0, 1
     elif wquant == "lo_int8":
-        raise NotImplementedError(
-            "weight_quant='lo_int8' is not ported to weightedld_tpu_torch "
-            "yet (ROADMAP queue 2 item 5)")
+        kind, nlev, rows = "lo", 1, 3
     else:
         raise ValueError(f"unknown wquant {wquant!r}")
     if weights.dim() != 2 or weights.shape[0] != rows:
@@ -314,12 +338,15 @@ def _weight_mode(weights: torch.Tensor, exact_weights: bool,
 
 
 def _float_rows(weights: torch.Tensor, kind: str) -> list[torch.Tensor]:
-    """The f32 weight rows of the float passes: the bf16-exact weights, or
-    split_bf16's (w_hi, w_lo) — each the f32 value of a bf16 number."""
+    """The f32 weight rows of the float passes: the bf16-exact weights,
+    lo_int8's w_hi, or split_bf16's (w_hi, w_lo) — each the f32 value of a
+    bf16 number."""
     w = weights[0]
     if kind == "exact":
         return [w]
     w_hi = w.to(torch.bfloat16).to(torch.float32)
+    if kind == "lo":
+        return [w_hi]
     w_lo = (w - w_hi).to(torch.bfloat16).to(torch.float32)
     return [w_hi, w_lo]
 
@@ -330,6 +357,20 @@ def _tile_rows(tiles: torch.Tensor, span: int) -> torch.Tensor:
     return tiles.to(torch.int64)[:, None] * span + ar[None, :]
 
 
+def _a_operands(x: torch.Tensor, weights: torch.Tensor, kind: str,
+                nlev: int) -> list[torch.Tensor]:
+    """The A-side operands of :func:`_cells_plain` from the 0/1 indicator
+    ``x [..., N]``: ``x * q_l`` per int8 level, ``x`` alone for the unit and
+    float kinds, ``[x, x * q]`` for lo_int8 (one-hot times int8 q fits
+    int8)."""
+    if kind == "int":
+        q = weights[:nlev].to(torch.int8)
+        return [x * q[lv] for lv in range(nlev)]
+    if kind == "lo":
+        return [x, x * weights[1].to(torch.int8)]
+    return [x]
+
+
 def _cells_plain(a_ops: list[torch.Tensor], y: torch.Tensor,
                  weights: torch.Tensor, kind: str, nlev: int,
                  seq_chunk: int) -> torch.Tensor:
@@ -338,7 +379,9 @@ def _cells_plain(a_ops: list[torch.Tensor], y: torch.Tensor,
     The int32 joints are computed exactly as float64 matrix products of the
     int8 operands (|q| <= 127, so every partial sum is an exact integer);
     float passes as float64 products rounded once to f32.  The f32 combine
-    runs once per seq chunk, as the kernels do."""
+    runs once per seq chunk, as the kernels do.  ``a_ops``: the int8 levels
+    (``"int"``), the indicator (unit and float kinds), or for ``"lo"`` the
+    indicator then its product with the residual level q."""
     n_pad = y.shape[-1]
     acc = None
     for c0 in range(0, n_pad, seq_chunk):
@@ -360,6 +403,10 @@ def _cells_plain(a_ops: list[torch.Tensor], y: torch.Tensor,
                     * w[sl].to(torch.float64)
                 term = torch.bmm(xs, yc).to(torch.float32)
                 cells = term if cells is None else cells + term
+            if kind == "lo":         # + alpha * f32(J), pallas_ld.py:926-930
+                j = torch.bmm(a_ops[1][..., sl].to(torch.float64),
+                              yc).to(torch.float32)
+                cells = cells + weights[2, 0] * j
         acc = cells if acc is None else acc + cells
     return acc
 
@@ -407,12 +454,8 @@ def tile_stats_majmin_plain(codes_sm, weights, auxc, tile_i, tile_j, emit, *,
 
     x = indicators(rows_i)
     y = indicators(rows_j)
-    if kind == "int":
-        q = weights[:nlev].to(torch.int8)
-        a_ops = [x * q[lv][None, None, :] for lv in range(nlev)]
-    else:
-        a_ops = [x]
-    acc = _cells_plain(a_ops, y, weights, kind, nlev, seq_chunk)
+    acc = _cells_plain(_a_operands(x, weights, kind, nlev), y, weights, kind,
+                       nlev, seq_chunk)
     return _finalize_plain(acc, auxc[rows_i, 2], auxc[rows_j, 2], tile_i,
                            tile_j, emit, tile, n_sites)
 
@@ -433,7 +476,10 @@ def tile_stats_majmin_pre_plain(planes, xq, weights, auxc, tile_i, tile_j,
         a_ops = [xq[lv][prow_i].reshape(k, 2 * tile, -1)
                  for lv in range(nlev)]
     else:
-        a_ops = [planes[prow_i].reshape(k, 2 * tile, -1)]
+        # lo_int8 builds its one xq level from the planes, as JAX does
+        # in-kernel (pallas_ld.py:1173-1177).
+        a_ops = _a_operands(planes[prow_i].reshape(k, 2 * tile, -1), weights,
+                            kind, nlev)
     acc = _cells_plain(a_ops, y, weights, kind, nlev, seq_chunk)
     return _finalize_plain(acc, auxc[_tile_rows(tile_i, tile), 2],
                            auxc[_tile_rows(tile_j, tile), 2], tile_i, tile_j,
@@ -500,13 +546,20 @@ def _launch(name: str, src0: int, src1: int, weights, auxc, tile_i,
     dev = weights.device
     k = tile_i.shape[0]
     scale_ptr = wf_ptr = 0
-    if kind in ("unit", "int"):
-        scale = (torch.ones(1, dtype=torch.float32, device=dev)
-                 if kind == "unit" else weights[nlev:2 * nlev, 0].contiguous())
-        scale_ptr, nflt = scale.data_ptr(), 0
+    nflt = 0
+    if kind == "unit":
+        scale = torch.ones(1, dtype=torch.float32, device=dev)
+    elif kind == "int":
+        scale = weights[nlev:2 * nlev, 0].contiguous()
+    elif kind == "lo":
+        scale = weights[2:3, 0].contiguous()
     else:
+        scale, nlev = None, 0
+    if scale is not None:
+        scale_ptr = scale.data_ptr()
+    if kind in ("exact", "split", "lo"):
         wf = torch.stack(_float_rows(weights, kind)).contiguous()
-        wf_ptr, nflt, nlev = wf.data_ptr(), wf.shape[0], 0
+        wf_ptr, nflt = wf.data_ptr(), wf.shape[0]
     d = torch.empty((k, tile, tile), dtype=torch.float32, device=dev)
     dp = torch.empty_like(d)
     r2 = torch.empty_like(d)
@@ -522,8 +575,23 @@ def _launch(name: str, src0: int, src1: int, weights, auxc, tile_i,
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
     if k > 0:
-        launches[name] += 1
+        launches[name + ("_lo_int8" if kind == "lo" else "")] += 1
     return PairStats(d=d, d_prime=dp, r2=r2, keep=keep.view(torch.bool))
+
+
+def _q_levels(weights: torch.Tensor, kind: str,
+              nlev: int) -> torch.Tensor | None:
+    """``[levels, N_pad]`` int8 weight levels the kernel multiplies into
+    the A operand: ones (unit), q1..qL (the int8 cascades), lo_int8's q
+    row; None for the float kinds."""
+    if kind == "unit":
+        return torch.ones((1, weights.shape[1]), dtype=torch.int8,
+                          device=weights.device)
+    if kind == "int":
+        return weights[:nlev].to(torch.int8).contiguous()
+    if kind == "lo":
+        return weights[1:2].to(torch.int8).contiguous()
+    return None
 
 
 def tile_stats_majmin(codes_sm, weights, auxc, tile_i, tile_j, emit, *,
@@ -551,12 +619,7 @@ def tile_stats_majmin(codes_sm, weights, auxc, tile_i, tile_j, emit, *,
         return tile_stats_majmin_plain(codes_sm, weights, auxc, tile_i,
                                        tile_j, emit, **kw)
     q_ptr = 0
-    if kind == "unit":
-        q = torch.ones((1, n_pad), dtype=torch.int8, device=device)
-    elif kind == "int":
-        q = weights[:nlev].to(torch.int8).contiguous()
-    else:
-        q = None
+    q = _q_levels(weights, kind, nlev)
     if q is not None:
         q_ptr = q.data_ptr()
     return _launch("ld_majmin_codes", codes_sm.data_ptr(), q_ptr, weights,
@@ -574,7 +637,8 @@ def tile_stats_majmin_pre(planes, xq, weights, auxc, tile_i, tile_j, emit, *,
     """Preplaned twin of :func:`tile_stats_majmin` — identical outputs.
     ``planes`` is ``[2*S_pad, N_pad]`` int8 from :func:`build_majmin_planes`;
     ``xq`` the ``[nlev, 2*S_pad, N_pad]`` int8 of :func:`build_majmin_xq`
-    for the int8 cascades, else None."""
+    for the int8 cascades, else None (lo_int8 scales the planes by its
+    one level inline, as ``_ld_kernel_mm_pre`` does)."""
     device = planes.device
     s2 = planes.shape[0]
     n_pad = planes.shape[1] if planes.dim() == 2 else -1
@@ -595,8 +659,15 @@ def tile_stats_majmin_pre(planes, xq, weights, auxc, tile_i, tile_j, emit, *,
     if device.type == "cpu":
         return tile_stats_majmin_pre_plain(planes, xq, weights, auxc, tile_i,
                                            tile_j, emit, **kw)
-    # Unit weights read the planes as their single int8 level.
-    xq_ptr = xq.data_ptr() if kind == "int" else planes.data_ptr()
+    # Unit weights read the planes as their single int8 level; lo_int8
+    # passes its q row in xq's place and the kernel builds planes * q inline.
+    q = _q_levels(weights, kind, nlev) if kind == "lo" else None
+    if kind == "int":
+        xq_ptr = xq.data_ptr()
+    elif kind == "lo":
+        xq_ptr = q.data_ptr()
+    else:
+        xq_ptr = planes.data_ptr()
     return _launch("ld_majmin_planes", planes.data_ptr(), xq_ptr, weights,
                    auxc, tile_i, tile_j, emit, kind=kind, nlev=nlev,
                    tile=tile, n_sites=n_sites, s_pad=s_pad, n_pad=n_pad,
