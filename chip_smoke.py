@@ -18,8 +18,11 @@ result line):
              bf16-exact / split_bf16 / lo_int8 weights); then each kernel's
              and its plain version's time on the full tile plan of N=1,000
              x S=8,192 (the general kernels at P = 5 with 1 % UNKNOWN
-             sites; each weighted entry in int8x3 and in lo_int8), whose
-             outputs are held against each other, beside its bound.
+             sites; each weighted entry in int8x3 and in lo_int8; the
+             kernel in one launch, the plain version in pieces of 128
+             tiles), whose outputs are held against each other, beside its
+             bound, and ``torch._int_mm`` over the factorized contraction
+             (the yardstick) in the same call.
 3. main    — the CLI in-process on a synthetic VCF at the headline shape
              (1,000 haplotypes x 49,152 sites, the loaded distribution with
              3,400 planted site triplets), ``--r2-threshold 0.1``: every
@@ -84,7 +87,8 @@ top-k selection with and without the tile-max prefilter, and breaks one
 scan down by device kernel with torch.profiler; ``--phases entries`` times
 the two factorized entry points over whole sessions at several N and S,
 interleaved; ``--phases yardstick`` times ``torch._int_mm`` over the
-factorized kernel's int8 contraction.
+factorized kernel's int8 contraction alone (the kernels phase runs it
+too).
 
 The launch counters are zeroed just before each run of the main path and
 read just after it; the kernels line reports ``ld_majmin_planes`` from the
@@ -126,10 +130,12 @@ HIST_EDGES = "0,0.1,0.2,0.5,1.01"
 DECAY_EDGES = "0,1,10,100,1000,10000,100000"
 TOP_K = 1000
 MATRIX_SITES, MATRIX_CLI_SITES = 8192, 2048
-# (N, S) of the entries phase: N_pad below, at and above 1,024 at the
-# headline S, and planes + xq of 1.2 GB at N = 1,000.
-ENTRY_SHAPES = ((500, S_HEAD), (1000, S_HEAD), (2000, S_HEAD),
-                (1000, 147456))
+# (N, S, seq_chunk) of the entries phase: N_pad below, at and above 1,024
+# at the headline S, planes + xq of 1.2 GB at N = 1,000, and a seq chunk
+# that is not a multiple of 16 (4-byte operand copies); None = auto.
+ENTRY_SHAPES = ((500, S_HEAD, None), (1000, S_HEAD, None),
+                (2000, S_HEAD, None), (1000, 147456, None),
+                (1000, S_HEAD, 200))
 
 # The ambiguous cell: sequences x columns, ambiguous columns, planted
 # triplets, and the columns of its CPU-vs-card slice.
@@ -159,6 +165,10 @@ KERNELS = {
 # The H100 SXM's published dense peaks at 700 W (int8 and bf16 tensor
 # cores, HBM3), against which bound_ms is computed.
 PEAK_INT8_OPS, PEAK_BF16_FLOPS, PEAK_BYTES = 1979e12, 989e12, 3.35e12
+# The int8x3 factorized entries' times on the kernel-timing plan with the
+# earlier dp4a body, in launches of <= 128 tiles (PERF.md), printed beside
+# the tensor-core body's.
+DP4A_MS = {"ld_majmin_codes": 10.307, "ld_majmin_planes": 9.455}
 
 
 def log(msg: str) -> None:
@@ -178,6 +188,43 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def ptxas_report(text: str) -> list[str]:
+    """One line per kernel instantiation of ``nvcc -Xptxas -v``'s report:
+    the kernel with its template arguments, registers (the launch's count;
+    warpgroups that run ``setmaxnreg`` differ), stack, spill stores and
+    loads, and whether ptxas serialized its wgmma (C7515)."""
+    import re
+
+    def short(mangled: str) -> str:
+        m = re.search(r"\d(ld_\w+?)I((?:L[ib]\d+E)+)E", mangled)
+        if not m:
+            return mangled
+        args = re.findall(r"L[ib](\d+)E", m.group(2))
+        return f"{m.group(1)}<{','.join(args)}>"
+
+    rows, serial, cur = {}, set(), None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = short(m.group(1))
+            rows[cur] = {}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            rows[cur].update(stack=m.group(1), st=m.group(2), ld=m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            rows[cur]["regs"] = m.group(1)
+        m = re.search(r"\(C7515\).*'(\w+)'", line)
+        if m:
+            serial.add(short(m.group(1)))
+    return [f"{name}: {r.get('regs', '?')} registers, {r.get('stack', '?')} "
+            f"B stack, {r.get('st', '?')} B spill stores, {r.get('ld', '?')} "
+            f"B spill loads" + (", wgmma serialized (C7515)"
+                                if name in serial else "")
+            for name, r in rows.items()]
+
+
 def phase_build() -> None:
     from weightedld_tpu_torch.ops import _build
 
@@ -188,9 +235,8 @@ def phase_build() -> None:
     log(f"[build] {[p.name for p in info.paths]}: compiled "
         f"{info.compiled} in parallel, nvcc {info.seconds:.2f}s, build + "
         f"load {time.monotonic() - t0:.2f}s")
-    for line in info.ptxas.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    for line in ptxas_report(info.ptxas):
+        log(f"[build] ptxas {line}")
 
 
 # ---------------------------------------------------------------------------
@@ -328,6 +374,22 @@ def check_session_batch(sess, label: str, b: int = 0,
     return name, e
 
 
+def _hold_pieces(got, ref: list, piece: int, label: str, bitwise: dict,
+                 name: str) -> float:
+    """Hold one launch's stats ``got`` against the plain version's run in
+    pieces of ``piece`` tiles (``ref``); clears ``bitwise[name]`` where r2
+    differs in a bit; returns the max abs error on kept pairs."""
+    import torch
+
+    worst = 0.0
+    for b, r in enumerate(ref):
+        g = type(got)(*(getattr(got, f)[b * piece:(b + 1) * piece]
+                        for f in got._fields))
+        worst = max(worst, _compare(g, r, f"{label} piece {b}"))
+        bitwise[name] &= bool(torch.equal(g.r2[r.keep], r.r2[r.keep]))
+    return worst
+
+
 def _variant(name: str, wq: str) -> str:
     """The kernels-line name of entry ``name`` under weight mode ``wq``."""
     return name + "_lo_int8" if wq == "lo_int8" else name
@@ -365,6 +427,11 @@ def phase_kernels() -> dict:
         (9, (0, 1, 4), 1000, 700, 256, 256, "lo_int8"),
         (10, (0, 1, 2, 3, 4), 150, 300, 48, 64, "lo_int8"),
         (12, (0, 1, 4), 333, 257, 64, 120, "lo_int8"),
+        # The wgmma body's edges: a CTA block larger than the tile, 4-byte
+        # staging (N_pad and seq_chunk not multiples of 16), three chunks.
+        (13, (0, 1, 4), 200, 600, 512, 200, "int8x3"),
+        (14, (0, 1, 2, 3, 4), 150, 300, 96, 40, "int8"),
+        (15, (0, 1, 4), 3000, 300, 96, 1024, "int8x3"),
     ]
     for seed, alpha, n, s, tile, chunk, wq in cases:
         codes, wr, auxc, ti, tj, em, kw = _case_inputs(
@@ -393,8 +460,11 @@ def phase_kernels() -> dict:
     # Time both entry points and their plain versions on the full tile
     # plan of N=1,000 x S=8,192 (T=256, one 1,024-wide seq chunk; int8x3,
     # then lo_int8), then hold the timed calls' outputs against each other.
+    # A kernel takes the whole plan in one launch, as the main path gives
+    # it batches of thousands of tiles; the plain version runs in pieces of
+    # `batch` tiles, which bound its float64 operands.
     batch = 128
-    ms, plain_ms, bound, shape = {}, {}, {}, {}
+    ms, plain_ms, bound, shape, ms_pieces = {}, {}, {}, {}, {}
     for wq in ("int8x3", "lo_int8"):
         codes, wr, auxc, ti, tj, em, kw = _case_inputs(
             11, (0, 1, 4), N_HEAD, S_TIMED, 256, 1024, wq, dev)
@@ -403,10 +473,10 @@ def phase_kernels() -> dict:
         nlev = 3 if wq == "int8x3" else 0
         xq = K.build_majmin_xq(planes, wr, 3) if nlev else None
 
-        def run(fn, *ops):
-            return [fn(*ops, wr, auxc, ti[lo:lo + batch], tj[lo:lo + batch],
-                       em[lo:lo + batch], **kw)
-                    for lo in range(0, ti.shape[0], batch)]
+        def run(fn, *ops, step=ti.shape[0]):
+            return [fn(*ops, wr, auxc, ti[lo:lo + step], tj[lo:lo + step],
+                       em[lo:lo + step], **kw)
+                    for lo in range(0, ti.shape[0], step)]
 
         ops = {"ld_majmin_codes": (K.tile_stats_majmin,
                                    K.tile_stats_majmin_plain, (codes,)),
@@ -428,17 +498,20 @@ def phase_kernels() -> dict:
             bound[vname] = _bound(
                 2 * macs * (3 if wq == "int8x3" else 1),
                 2 * macs if wq == "lo_int8" else 0, in_bytes + out_bytes)
-            ms[vname], got = _time_cuda(lambda: run(fn, *src), 3)
-            plain_ms[vname], ref = _time_cuda(lambda: run(plain, *src), 1)
-            for b, (g, r) in enumerate(zip(got, ref)):
-                e = _compare(g, r, f"{vname} timed N={N_HEAD} S={S_TIMED} "
-                             f"chunk=1024 batch {b}")
-                err[vname] = max(err[vname], e)
-                bitwise[vname] &= bool(torch.equal(g.r2[r.keep],
-                                                   r.r2[r.keep]))
+            ms[vname], (got,) = _time_cuda(lambda: run(fn, *src), 10)
+            if vname in DP4A_MS:
+                # The dp4a body's method: launches of <= 128 tiles, each
+                # paying the wrapper's host work.
+                ms_pieces[vname] = _time_cuda(
+                    lambda: run(fn, *src, step=batch), 10)[0]
+            plain_ms[vname], ref = _time_cuda(
+                lambda: run(plain, *src, step=batch), 1)
+            err[vname] = max(err[vname], _hold_pieces(
+                got, ref, batch, f"{vname} timed N={N_HEAD} S={S_TIMED} "
+                f"chunk=1024", bitwise, vname))
             shape[vname] = f"{wq}, s_pad {s_pad}, n_pad {n_pad}"
             log(f"[kernels] ok: {vname} timed calls, {ti.shape[0]} tiles in "
-                f"{len(got)} launches of <= {batch}, kernel == plain")
+                f"one launch, kernel == plain")
             del got, ref
         del codes, planes, xq
 
@@ -483,7 +556,8 @@ def phase_kernels() -> dict:
 
     # Time the general entries and their plain versions on the full plan of
     # N=1,000 x S=8,192 at P = 5 with 1 % UNKNOWN sites (T=256, one
-    # 1,024-wide chunk), outputs held against each other.
+    # 1,024-wide chunk; the kernel in one launch, the plain version in
+    # pieces), outputs held against each other.
     for name, wq, pre in (("ld_general", "int8x3", False),
                           ("ld_general_unit", "unit", False),
                           ("ld_general_planes", "int8x3", True),
@@ -496,10 +570,10 @@ def phase_kernels() -> dict:
         src = G.build_planes_tiled(codes, tile=256, planes=kw["planes"]) \
             if pre else codes
 
-        def grun(fn):
-            return [fn(src, wr, ti[lo:lo + batch], tj[lo:lo + batch],
-                       em[lo:lo + batch], preplaned=pre, **kw)
-                    for lo in range(0, ti.shape[0], batch)]
+        def grun(fn, step=ti.shape[0]):
+            return [fn(src, wr, ti[lo:lo + step], tj[lo:lo + step],
+                       em[lo:lo + step], preplaned=pre, **kw)
+                    for lo in range(0, ti.shape[0], step)]
 
         # Work: per output pair and sequence column the 2P count MACs, then
         # the four selected cells per weight pass (int8x3: 3 int8 levels;
@@ -513,17 +587,15 @@ def phase_kernels() -> dict:
             2 * pairs * n_pad * (2 * p + cells),
             2 * pairs * n_pad * 4 if wq == "lo_int8" else 0,
             src.numel() + wr.numel() * 4 + 12 * ti.shape[0] + 13 * pairs)
-        ms[name], got = _time_cuda(lambda: grun(G.tile_stats_general), 3)
+        ms[name], (got,) = _time_cuda(lambda: grun(G.tile_stats_general), 3)
         plain_ms[name], ref = _time_cuda(
-            lambda: grun(G.tile_stats_general_plain), 1)
-        for b, (g, r) in enumerate(zip(got, ref)):
-            err[name] = max(err[name], _compare(
-                g, r, f"{name} timed N={N_HEAD} S={S_TIMED} chunk=1024 "
-                f"batch {b}"))
-            bitwise[name] &= bool(torch.equal(g.r2[r.keep], r.r2[r.keep]))
+            lambda: grun(G.tile_stats_general_plain, step=batch), 1)
+        err[name] = max(err[name], _hold_pieces(
+            got, ref, batch, f"{name} timed N={N_HEAD} S={S_TIMED} "
+            f"chunk=1024", bitwise, name))
         shape[name] = f"{wq}, P={p}"
         log(f"[kernels] ok: {name} timed calls, {ti.shape[0]} tiles in "
-            f"{len(got)} launches of <= {batch}, kernel == plain")
+            f"one launch, kernel == plain")
         del got, ref, codes, src
 
     n_pairs = S_TIMED * (S_TIMED - 1) // 2
@@ -535,12 +607,19 @@ def phase_kernels() -> dict:
             f"S={S_TIMED}, T=256, {shape[name]}): "
             f"{n_pairs / (ms[name] / 1e3):.4g} pairs/s kernel | {card}")
     log(f"[kernels] r2 bitwise equal, kernel vs plain: {bitwise}")
+    for name, old in DP4A_MS.items():
+        log(f"[kernels] {name} int8x3 on wgmma: {ms[name]:.3f} ms in one "
+            f"launch, {bound[name][0] / ms[name]:.1%} of its bound; "
+            f"{ms_pieces[name]:.3f} ms in launches of <= {batch} tiles, "
+            f"where the dp4a body took {old} ms (an H100 80GB HBM3 at "
+            f"700 W) | {card}")
+    phase_yardstick()                      # the same call, the same clock
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound}
 
 
 def phase_yardstick() -> None:
-    """Not in the default run: ``torch._int_mm`` over the factorized
-    kernel's int8 contraction on the timed plan (N=1,000 x S=8,192, int8x3):
+    """``torch._int_mm`` over the factorized kernel's int8 contraction on
+    the timed plan (N=1,000 x S=8,192, int8x3):
     each cascade level's ``xq_l [2*S_pad, N_pad]`` against the planes'
     transpose, the whole square (twice the triangle the kernel computes),
     without the selection, the combine or the finalize — "contraction
@@ -1430,15 +1509,16 @@ def phase_profile() -> None:
 
 def phase_entries() -> None:
     """Not in the default run: the codes entry against the preplaned entry,
-    whole sessions on Henikoff-weighted loaded alignments at several N and
-    S (set-up, then scans interleaved on, off, off, on after a warm-up of
-    each), so that ``preplaned="auto"`` can be set from the card."""
+    whole sessions on Henikoff-weighted loaded alignments at several N, S
+    and seq chunks (set-up, then scans interleaved on, off, off, on after a
+    warm-up of each), so that ``preplaned="auto"`` can be set from the
+    card."""
     import torch
 
     from weightedld_tpu_torch.core.henikoff import henikoff_weights_host
     from weightedld_tpu_torch.runtime.driver import DriverConfig, LdSession
 
-    for n, s in ENTRY_SHAPES:
+    for n, s, chunk in ENTRY_SHAPES:
         aln, _seeds = loaded_alignment(np.random.default_rng(n + s), n, s,
                                        N_TRIPLETS)
         w = henikoff_weights_host(aln)
@@ -1448,6 +1528,7 @@ def phase_entries() -> None:
             t0 = time.monotonic()
             sessions[pp] = LdSession(aln, w, np.arange(1, s + 1),
                                      DriverConfig(r2_threshold=0.1,
+                                                  seq_chunk=chunk,
                                                   preplaned=pp))
             setup[pp] = time.monotonic() - t0
         sess = sessions["on"]
@@ -1543,8 +1624,8 @@ def main() -> int:
             phase_profile()
         if "entries" in phases:
             phase_entries()
-        if "yardstick" in phases:
-            phase_yardstick()
+        if "yardstick" in phases and "kernels" not in phases:
+            phase_yardstick()              # the kernels phase runs it too
     if set(phases) != set(DEFAULT_PHASES):
         log("[smoke] partial run: no result line")
         return 0

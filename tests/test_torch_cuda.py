@@ -51,9 +51,19 @@ def cuda_device():
 
 
 def _inputs(name: str, device):
-    seed, alphabet, n, s, tile, chunk, mode = CASES[name]
+    return _make_inputs(*CASES[name], device)
+
+
+def _make_inputs(seed, alphabet, n, s, tile, chunk, mode, device,
+                 emit_kind="random", monomorphic_tile=False):
+    """Kernel arguments for a random alignment.  ``emit_kind``: "random"
+    (each tile pair emits with probability 0.8), "mixed" (every third tile
+    pair is padding), "none" (no tile pair emits) or "all";
+    ``monomorphic_tile``: every site of the first site tile is fixed."""
     rng = np.random.default_rng(seed)
     aln = rng.choice(alphabet, size=(n, s)).astype(np.int8)
+    if monomorphic_tile:
+        aln[:, :tile] = aln[0, :tile]
     if mode == "unit":
         w = np.ones(n, np.float32)
     elif mode == "exact":
@@ -65,7 +75,12 @@ def _inputs(name: str, device):
     wr = _packed_weights(w, chunk, mode)
     plan = plan_tiles(s, tile)
     emit = np.ones(plan.n_tiles, np.int32)
-    emit[rng.random(plan.n_tiles) < 0.2] = 0
+    if emit_kind == "random":
+        emit[rng.random(plan.n_tiles) < 0.2] = 0
+    elif emit_kind == "mixed":
+        emit[1::3] = 0
+    elif emit_kind == "none":
+        emit[:] = 0
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     arrays = dict(codes=t(K.pad_alignment_site_major(aln, tile, chunk)),
                   weights=t(wr), auxc=t(K.majmin_site_aux(aln, plan.s_pad)[0]),
@@ -96,11 +111,9 @@ def _assert_match(got: K.PairStats, ref: K.PairStats) -> None:
         torch.testing.assert_close(g[fin], r[fin], rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("entry", ["codes", "pre"])
-@pytest.mark.parametrize("name", list(CASES))
-def test_kernel_matches_plain_on_card(cuda_device, name, entry):
-    a, kw, nlev = _inputs(name, cuda_device)
+def _run_entry(a, kw, nlev, entry):
+    """``(kernel stats, plain stats)`` of one factorized entry point; checks
+    that the call launched its kernel once."""
     args = (a["weights"], a["auxc"], a["tile_i"], a["tile_j"], a["emit"])
     before = dict(K.launches)
     if entry == "codes":
@@ -117,7 +130,53 @@ def test_kernel_matches_plain_on_card(cuda_device, name, entry):
         kernel += "_lo_int8"
     torch.cuda.synchronize()
     assert K.launches[kernel] == before[kernel] + 1
-    _assert_match(got, ref)
+    return got, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["codes", "pre"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_kernel_matches_plain_on_card(cuda_device, name, entry):
+    a, kw, nlev = _inputs(name, cuda_device)
+    _assert_match(*_run_entry(a, kw, nlev, entry))
+
+
+# The integer weight modes' tensor-core body at its edges.  id -> (seed,
+# alphabet, n_seqs, n_sites, tile, seq_chunk, emit kind, monomorphic first
+# tile): a tile below, between and above the 64 x 32 site block of a CTA
+# (512: the largest the compaction takes); seq chunks that are not
+# multiples of 16 (N_pad neither), so every chunk ends in a partial
+# 128-column stage staged 4 bytes at a time; three 1,024-column chunks;
+# batches with no emitting tile pair and with every third one padding;
+# a tile whose every site is monomorphic.
+WGMMA_CASES = {
+    "t48-c40": (41, (0, 1, 2, 3, 4), 150, 300, 48, 40, "mixed", False),
+    "t96-c120": (42, (0, 1, 4), 333, 500, 96, 120, "mixed", False),
+    "t512-c200": (43, (0, 1, 4), 200, 600, 512, 200, "mixed", False),
+    "n3000-c1024": (44, (0, 1, 4), 3000, 300, 96, 1024, "mixed", False),
+    "emit-none": (45, (0, 1, 2, 3, 4), 150, 300, 96, 64, "none", False),
+    "monomorphic": (46, (0, 1, 4), 200, 400, 96, 200, "all", True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["codes", "pre"])
+@pytest.mark.parametrize("mode", ["unit", "int8", "int8x3"])
+@pytest.mark.parametrize("name", list(WGMMA_CASES))
+def test_wgmma_body_bit_equal_on_card(cuda_device, name, mode, entry):
+    seed, alphabet, n, s, tile, chunk, emit_kind, mono = WGMMA_CASES[name]
+    a, kw, nlev = _make_inputs(seed, alphabet, n, s, tile, chunk, mode,
+                               cuda_device, emit_kind, mono)
+    got, ref = _run_entry(a, kw, nlev, entry)
+    keep = ref.keep.cpu()
+    assert torch.equal(got.keep.cpu(), keep)
+    assert bool(keep.any()) == (emit_kind != "none")
+    if mono:
+        assert not keep[a["tile_i"].cpu() == 0].any()
+    for f in ("d", "d_prime", "r2"):
+        torch.testing.assert_close(getattr(got, f).cpu()[keep],
+                                   getattr(ref, f).cpu()[keep], rtol=0,
+                                   atol=0, equal_nan=True, msg=f)
 
 
 @pytest.mark.cuda
@@ -130,13 +189,39 @@ def test_wrapper_rejects_mixed_devices(cuda_device):
 
 @pytest.mark.cuda
 def test_auto_preplaned_picks_planes_that_fit(cuda_device):
+    # The preplaned entry scans faster in every weight mode measured on
+    # the card (integer modes on the tensor cores included), so "auto"
+    # takes the planes whenever they fit plane_budget.
     rng = np.random.default_rng(12)
     aln = rng.choice((0, 1, 4), size=(300, 500)).astype(np.int8)
-    sess = LdSession(aln, (rng.random(300) + 0.05).astype(np.float32),
-                     np.arange(500), DriverConfig(tile=128),
-                     device=cuda_device)
-    assert sess.preplaned and sess.codes_dev is None
-    assert len(sess.operands) == 2 and plane_budget(cuda_device) > 0
+    w = (rng.random(300) + 0.05).astype(np.float32)
+    for wq in ("none", "int8", "lo_int8"):
+        sess = LdSession(aln, w, np.arange(500),
+                         DriverConfig(tile=128, weight_quant=wq),
+                         device=cuda_device)
+        assert sess.preplaned and sess.codes_dev is None, wq
+        planes, xq = sess.operands
+        assert planes is not None and (xq is None) == (wq == "lo_int8"), wq
+    assert plane_budget(cuda_device) > 0
+
+
+@pytest.mark.cuda
+def test_auto_preplaned_takes_codes_for_4_byte_staging(cuda_device):
+    # A seq chunk that is not a multiple of 16 leaves the integer modes'
+    # preplaned entry 4-byte copies, where the codes entry scans faster;
+    # the float modes (lo_int8 here) keep the planes.
+    rng = np.random.default_rng(12)
+    aln = rng.choice((0, 1, 4), size=(300, 500)).astype(np.int8)
+    w = (rng.random(300) + 0.05).astype(np.float32)
+    for wts, wq, planes in ((w, "none", False), (w, "int8", False),
+                            (np.ones(300, np.float32), "none", False),
+                            (w, "lo_int8", True)):
+        sess = LdSession(aln, wts, np.arange(500),
+                         DriverConfig(tile=128, seq_chunk=40,
+                                      weight_quant=wq),
+                         device=cuda_device)
+        assert sess.preplaned == planes, wq
+        assert (sess.codes_dev is None) == planes, wq
 
 
 @pytest.mark.cuda

@@ -528,10 +528,15 @@ def _check_common(weights, auxc, tile_i, tile_j, emit, *, s_pad, n_pad,
         _check(nm, t, torch.int32, (k,), device)
     if k > 0:
         grid = s_pad // tile
-        lo = torch.minimum(tile_i.min(), tile_j.min())
-        hi = torch.maximum(tile_i.max(), tile_j.max())
-        if int(lo) < 0 or int(hi) >= grid:
-            raise ValueError(f"tile indices outside [0, {grid})")
+        ok = (torch.minimum(tile_i.min(), tile_j.min()) >= 0) \
+            & (torch.maximum(tile_i.max(), tile_j.max()) < grid)
+        msg = f"tile indices outside [0, {grid})"
+        if device.type == "cuda":
+            # Checked on the card, as PyTorch's indexing does: a host read
+            # here would wait for every earlier launch before this one.
+            torch._assert_async(ok, msg)
+        elif not bool(ok):
+            raise ValueError(msg)
     return _weight_mode(weights, exact_weights, unit_weights, wquant)
 
 
