@@ -15,14 +15,17 @@ result line):
              and unit) on alignments with 1-10 % UNKNOWN cells and P = 2..5
              planes, a restricted ``planes`` tuple among them (ragged S and
              N, several seq chunks, emit=0 tiles, int8x3 / int8 / unit /
-             bf16-exact / split_bf16 / lo_int8 weights); then each kernel's
-             and its plain version's time on the full tile plan of N=1,000
-             x S=8,192 (the general kernels at P = 5 with 1 % UNKNOWN
-             sites; each weighted entry in int8x3 and in lo_int8; the
-             kernel in one launch, the plain version in pieces of 128
-             tiles), whose outputs are held against each other, beside its
-             bound, and ``torch._int_mm`` over the factorized contraction
-             (the yardstick) in the same call.
+             bf16-exact / split_bf16 / lo_int8 weights; the factorized
+             lo_int8 and bf16-exact rows must give r2 bit for bit); then
+             each kernel's and its plain version's time on the full tile
+             plan of N=1,000 x S=8,192 (the general kernels at P = 5 with
+             1 % UNKNOWN sites; each weighted entry in int8x3 and in
+             lo_int8, the factorized ones in split_bf16 and bf16-exact too,
+             the general ones timed there as well; the kernel in one launch,
+             the plain version in pieces of 128 tiles), whose outputs are
+             held against each other, beside its bound, and ``torch._int_mm``
+             and a bf16 ``torch.mm`` over the factorized contraction (the
+             yardsticks) in the same call.
 3. main    — the CLI in-process on a synthetic VCF at the headline shape
              (1,000 haplotypes x 49,152 sites, the loaded distribution with
              3,400 planted site triplets), ``--r2-threshold 0.1``: every
@@ -54,7 +57,11 @@ result line):
              ``run_to_tsv(preplaned="off", weight_quant="lo_int8")`` (the
              codes entry, held to int8x3 at rtol 2e-5 / atol 1e-6), and
              one full batch of each lo_int8 headline session (preplaned
-             and codes entry), kernel against plain.
+             and codes entry), kernel against plain; then ``summarize`` of
+             the prepared headline in split_bf16 and with its weights
+             rounded to bf16 (bf16-exact), each through both entries and
+             held to int8x3's counts, with one full batch of each, kernel
+             against plain.
 6. ambiguous — the ambiguity-code path at full size: a synthetic FASTA of
              1,024 sequences x 16,384 columns over A C G T - with 1-2
              ambiguity characters (N R Y) at 1 % of the columns and planted
@@ -86,20 +93,25 @@ session's ``stream`` and ``summarize`` scans interleaved, one batch's
 top-k selection with and without the tile-max prefilter, and breaks one
 scan down by device kernel with torch.profiler; ``--phases entries`` times
 the two factorized entry points over whole sessions at several N and S,
-interleaved; ``--phases yardstick`` times ``torch._int_mm`` over the
-factorized kernel's int8 contraction alone (the kernels phase runs it
-too).
+interleaved, in int8x3, lo_int8 and split_bf16; ``--phases pace`` times
+variants of the factorized body that drop or change one part of its work
+(``PACE_VARIANTS``) beside the committed body; ``--phases yardstick``
+times ``torch._int_mm`` and a bf16 ``torch.mm`` over the factorized
+kernel's contraction alone (the kernels phase runs them too).
 
 The launch counters are zeroed just before each run of the main path and
 read just after it; the kernels line reports ``ld_majmin_planes`` from the
 headline CLI run, ``ld_majmin_codes`` from the headline codes-entry run,
 ``ld_general`` from the ambiguous CLI run, ``ld_general_planes`` from its
 preplaned ``kernel="general"`` run and ``ld_general_unit`` from its
-``--unweighted`` CLI run, and the four lo_int8 variants from the lo_int8
-runs of the analytics and ambiguous phases.  Launches of the
-kernel-vs-plain checks (every weighted entry in lo_int8 too, each on a
-full batch of the main path's own session) are not counted.  The last three lines of standard output are the kernels JSON,
-the card line from nvidia-smi, and the result JSON.  The script makes only
+``--unweighted`` CLI run, the four lo_int8 variants from the lo_int8
+runs of the analytics and ambiguous phases, and the factorized split_bf16
+and bf16-exact variants from the analytics phase's summarize runs.
+Launches of the kernel-vs-plain checks (every weighted entry in lo_int8
+too, the factorized ones in split_bf16 and bf16-exact, each on a full
+batch of the main path's own session) are not counted.  The last three
+lines of standard output are the kernels JSON, the card line from
+nvidia-smi, and the result JSON.  The script makes only
 the first visible card visible to itself.
 """
 
@@ -136,6 +148,7 @@ MATRIX_SITES, MATRIX_CLI_SITES = 8192, 2048
 ENTRY_SHAPES = ((500, S_HEAD, None), (1000, S_HEAD, None),
                 (2000, S_HEAD, None), (1000, 147456, None),
                 (1000, S_HEAD, 200))
+ENTRY_MODES = ("none", "lo_int8", "split_bf16")
 
 # The ambiguous cell: sequences x columns, ambiguous columns, planted
 # triplets, and the columns of its CPU-vs-card slice.
@@ -157,6 +170,16 @@ KERNELS = {
                                 MAJMIN_SRC),
     "ld_majmin_planes_lo_int8": ("weightedld_tpu/ops/pallas_ld.py:1173",
                                  MAJMIN_SRC),
+    # The factorized kernel's other float modes (pallas_ld.py:931-935,
+    # :1178-1182), counted under their own names as well.
+    "ld_majmin_codes_split_bf16": ("weightedld_tpu/ops/pallas_ld.py:931",
+                                   MAJMIN_SRC),
+    "ld_majmin_planes_split_bf16": ("weightedld_tpu/ops/pallas_ld.py:1178",
+                                    MAJMIN_SRC),
+    "ld_majmin_codes_bf16_exact": ("weightedld_tpu/ops/pallas_ld.py:934",
+                                   MAJMIN_SRC),
+    "ld_majmin_planes_bf16_exact": ("weightedld_tpu/ops/pallas_ld.py:1181",
+                                    MAJMIN_SRC),
     "ld_general_lo_int8": ("weightedld_tpu/ops/pallas_ld.py:307",
                            GENERAL_SRC),
     "ld_general_planes_lo_int8": ("weightedld_tpu/ops/pallas_ld.py:307",
@@ -390,9 +413,25 @@ def _hold_pieces(got, ref: list, piece: int, label: str, bitwise: dict,
     return worst
 
 
+# Weight mode -> the suffix its launches count under: the factorized
+# entries count every float mode under its own name, the general entries
+# lo_int8 alone.
+MODE_SUFFIX = {"lo_int8": "_lo_int8", "split_bf16": "_split_bf16",
+               "exact": "_bf16_exact"}
+# The factorized rows r2 must be bit-equal on (their weights keep every f32
+# partial sum exact: the note at the top of csrc/ld_majmin.cu).
+BIT_EQUAL_MODES = ("lo_int8", "exact")
+# Passes of each factorized weight mode on the int8 and on the bf16 tensor
+# cores, by the function (lo_int8's residual is an int8 pass).
+INT8_PASSES = {"int8x3": 3, "lo_int8": 1}
+BF16_PASSES = {"lo_int8": 1, "split_bf16": 2, "exact": 1}
+
+
 def _variant(name: str, wq: str) -> str:
     """The kernels-line name of entry ``name`` under weight mode ``wq``."""
-    return name + "_lo_int8" if wq == "lo_int8" else name
+    if name.startswith("ld_general") and wq != "lo_int8":
+        return name
+    return name + MODE_SUFFIX.get(wq, "")
 
 
 def _bound(ops_int8: float, flops_bf16: float, nbytes: float,
@@ -413,7 +452,10 @@ def phase_kernels() -> dict:
 
     dev = torch.device("cuda")
     err = {name: 0.0 for name in KERNELS}
-    bitwise = {name: True for name in KERNELS}
+    # Every kernels-phase row, the general kernel's timed-only split_bf16
+    # and bf16-exact rows included.
+    bitwise = {name: True for name in (*KERNELS, "ld_general_split_bf16",
+                                       "ld_general_bf16_exact")}
     cases = [
         # seed, alphabet, N, S, tile, seq_chunk, weight mode
         (1, (0, 1, 4), 1000, 700, 256, 256, "int8x3"),
@@ -432,6 +474,14 @@ def phase_kernels() -> dict:
         (13, (0, 1, 4), 200, 600, 512, 200, "int8x3"),
         (14, (0, 1, 2, 3, 4), 150, 300, 96, 40, "int8"),
         (15, (0, 1, 4), 3000, 300, 96, 1024, "int8x3"),
+        # The same edges in the float modes (bf16 operands, 64-column
+        # stages): 4-byte staging, a block larger than the tile, N = 3,000.
+        (16, (0, 1, 4), 200, 600, 512, 200, "split_bf16"),
+        (17, (0, 1, 2, 3, 4), 150, 300, 96, 40, "exact"),
+        (18, (0, 1, 4), 3000, 300, 96, 1024, "lo_int8"),
+        (19, (0, 1, 4), 200, 600, 512, 200, "lo_int8"),
+        (20, (0, 1, 2, 3, 4), 150, 300, 96, 120, "split_bf16"),
+        (22, (0, 1, 4), 3000, 300, 96, 1024, "exact"),
     ]
     for seed, alpha, n, s, tile, chunk, wq in cases:
         codes, wr, auxc, ti, tj, em, kw = _case_inputs(
@@ -459,13 +509,14 @@ def phase_kernels() -> dict:
 
     # Time both entry points and their plain versions on the full tile
     # plan of N=1,000 x S=8,192 (T=256, one 1,024-wide seq chunk; int8x3,
-    # then lo_int8), then hold the timed calls' outputs against each other.
+    # then each float mode), then hold the timed calls' outputs against
+    # each other.
     # A kernel takes the whole plan in one launch, as the main path gives
     # it batches of thousands of tiles; the plain version runs in pieces of
     # `batch` tiles, which bound its float64 operands.
     batch = 128
     ms, plain_ms, bound, shape, ms_pieces = {}, {}, {}, {}, {}
-    for wq in ("int8x3", "lo_int8"):
+    for wq in ("int8x3", "lo_int8", "split_bf16", "exact"):
         codes, wr, auxc, ti, tj, em, kw = _case_inputs(
             11, (0, 1, 4), N_HEAD, S_TIMED, 256, 1024, wq, dev)
         em = torch.ones_like(em)
@@ -485,8 +536,9 @@ def phase_kernels() -> dict:
                                     (planes, xq))}
         # Work of the whole plan: 4 cells per output pair, per sequence
         # column: int8x3 3 int8 MACs; lo_int8 one bf16 MAC (w_hi) and one
-        # int8 MAC (the residual).  Bytes: each input read once, the
-        # outputs (d, d', r2 f32, keep int8) written once.
+        # int8 MAC (the residual); split_bf16 two bf16 MACs; bf16-exact
+        # one.  Bytes: each input read once, the outputs (d, d', r2 f32,
+        # keep int8) written once.
         pairs = ti.shape[0] * 256 * 256
         n_pad, s_pad = codes.shape[1], codes.shape[0]
         macs = 4 * pairs * n_pad
@@ -495,9 +547,9 @@ def phase_kernels() -> dict:
         for name, (fn, plain, src) in ops.items():
             vname = _variant(name, wq)
             in_bytes = sum(x.numel() for x in src if x is not None)
-            bound[vname] = _bound(
-                2 * macs * (3 if wq == "int8x3" else 1),
-                2 * macs if wq == "lo_int8" else 0, in_bytes + out_bytes)
+            bound[vname] = _bound(2 * macs * INT8_PASSES.get(wq, 0),
+                                  2 * macs * BF16_PASSES.get(wq, 0),
+                                  in_bytes + out_bytes)
             ms[vname], (got,) = _time_cuda(lambda: run(fn, *src), 10)
             if vname in DP4A_MS:
                 # The dp4a body's method: launches of <= 128 tiles, each
@@ -558,11 +610,15 @@ def phase_kernels() -> dict:
     # N=1,000 x S=8,192 at P = 5 with 1 % UNKNOWN sites (T=256, one
     # 1,024-wide chunk; the kernel in one launch, the plain version in
     # pieces), outputs held against each other.
+    # The split_bf16 and bf16-exact rows (launches counted under
+    # ld_general) are timed beside their bound only.
     for name, wq, pre in (("ld_general", "int8x3", False),
                           ("ld_general_unit", "unit", False),
                           ("ld_general_planes", "int8x3", True),
                           ("ld_general_lo_int8", "lo_int8", False),
-                          ("ld_general_planes_lo_int8", "lo_int8", True)):
+                          ("ld_general_planes_lo_int8", "lo_int8", True),
+                          ("ld_general_split_bf16", "split_bf16", False),
+                          ("ld_general_bf16_exact", "exact", False)):
         codes, wr, ti, tj, em, kw = _general_case_inputs(
             31, (0, 1, 2, 3, 4), N_HEAD, S_TIMED, 256, 1024, wq, 0.0, None,
             dev, dirty_sites=S_TIMED // 100)
@@ -577,20 +633,22 @@ def phase_kernels() -> dict:
 
         # Work: per output pair and sequence column the 2P count MACs, then
         # the four selected cells per weight pass (int8x3: 3 int8 levels;
-        # unit: 1; lo_int8: one int8 and one bf16) — the least work of the
-        # known formulations (the TPU's dense P^2 L + 2P joint is larger).
+        # unit: 1; lo_int8: one int8 and one bf16; split_bf16: two bf16;
+        # bf16-exact: one bf16) — the least work of the known formulations
+        # (the TPU's dense P^2 L + 2P joint is larger).
         p = len(kw["planes"])
         pairs = ti.shape[0] * 256 * 256
         n_pad = codes.shape[1]
-        cells = {"int8x3": 12, "unit": 4, "lo_int8": 4}[wq]
+        cells = {"int8x3": 12, "unit": 4, "lo_int8": 4}.get(wq, 0)
+        cells16 = {"lo_int8": 4, "split_bf16": 8, "exact": 4}.get(wq, 0)
         bound[name] = _bound(
             2 * pairs * n_pad * (2 * p + cells),
-            2 * pairs * n_pad * 4 if wq == "lo_int8" else 0,
+            2 * pairs * n_pad * cells16,
             src.numel() + wr.numel() * 4 + 12 * ti.shape[0] + 13 * pairs)
         ms[name], (got,) = _time_cuda(lambda: grun(G.tile_stats_general), 3)
         plain_ms[name], ref = _time_cuda(
             lambda: grun(G.tile_stats_general_plain, step=batch), 1)
-        err[name] = max(err[name], _hold_pieces(
+        err[name] = max(err.get(name, 0.0), _hold_pieces(
             got, ref, batch, f"{name} timed N={N_HEAD} S={S_TIMED} "
             f"chunk=1024", bitwise, name))
         shape[name] = f"{wq}, P={p}"
@@ -600,13 +658,21 @@ def phase_kernels() -> dict:
 
     n_pairs = S_TIMED * (S_TIMED - 1) // 2
     card = card_line()
-    for name in KERNELS:
+    for name in ms:
         log(f"[kernels] {name}: {ms[name]:.3f} ms kernel vs "
             f"{plain_ms[name]:.3f} ms plain, bound {bound[name][0]:.4f} ms "
             f"({bound[name][1]}) for {ti.shape[0]} tiles (N={N_HEAD}, "
             f"S={S_TIMED}, T=256, {shape[name]}): "
             f"{n_pairs / (ms[name] / 1e3):.4g} pairs/s kernel | {card}")
     log(f"[kernels] r2 bitwise equal, kernel vs plain: {bitwise}")
+    unequal = [_variant(entry, wq) for entry in ("ld_majmin_codes",
+                                                 "ld_majmin_planes")
+               for wq in BIT_EQUAL_MODES
+               if not bitwise[_variant(entry, wq)]]
+    if unequal:
+        raise AssertionError(f"r2 not bit-equal to the plain version in "
+                             f"{unequal}, whose weights keep every f32 "
+                             f"partial sum exact")
     for name, old in DP4A_MS.items():
         log(f"[kernels] {name} int8x3 on wgmma: {ms[name]:.3f} ms in one "
             f"launch, {bound[name][0] / ms[name]:.1%} of its bound; "
@@ -618,12 +684,14 @@ def phase_kernels() -> dict:
 
 
 def phase_yardstick() -> None:
-    """``torch._int_mm`` over the factorized kernel's int8 contraction on
-    the timed plan (N=1,000 x S=8,192, int8x3):
-    each cascade level's ``xq_l [2*S_pad, N_pad]`` against the planes'
-    transpose, the whole square (twice the triangle the kernel computes),
-    without the selection, the combine or the finalize — "contraction
-    only", a yardstick and no function of the port."""
+    """Two yardsticks on the timed plan (N=1,000 x S=8,192), each the
+    factorized kernel's contraction alone, the whole square (twice the
+    triangle the kernel computes), without the selection, the combine or
+    the finalize — "contraction only", yardsticks and no function of the
+    port: ``torch._int_mm`` over int8x3's three cascade levels
+    (``xq_l [2*S_pad, N_pad]`` against the planes' transpose), and
+    ``torch.mm`` over one bf16 float pass (the planes times bf16(w) against
+    the planes' transpose, bf16 -> f32)."""
     import torch
 
     from weightedld_tpu_torch.ops import cuda_ld as K
@@ -636,11 +704,29 @@ def phase_yardstick() -> None:
     pt = planes.t()
     t_ms, _out = _time_cuda(lambda: [torch._int_mm(xq[lv], pt)
                                      for lv in range(3)], 3)
+    del _out
     m, kdim = planes.shape
     ops = 3 * 2 * m * m * kdim
     log(f"[yardstick] torch._int_mm, 3 levels of [{m}, {kdim}] x [{kdim}, "
         f"{m}] int8 -> int32 (contraction only, whole square): {t_ms:.3f} "
         f"ms, {ops / (t_ms / 1e3):.4g} int8 ops/s | {card_line()}")
+    del xq
+    _c, wf, _a, _ti, _tj, _em, _kw = _case_inputs(
+        11, (0, 1, 4), N_HEAD, S_TIMED, 256, 1024, "split_bf16", dev)
+    xs = planes.to(torch.bfloat16) * wf[0].to(torch.bfloat16)
+    yt = planes.to(torch.bfloat16).t()
+    try:                       # f32 out where this torch offers it
+        torch.mm(xs[:64], yt[:, :64], out_dtype=torch.float32)
+        out = "bf16 -> f32"
+        bf16_ms, _out = _time_cuda(
+            lambda: torch.mm(xs, yt, out_dtype=torch.float32), 3)
+    except TypeError:
+        out = "bf16 -> bf16 (this torch.mm takes no out_dtype)"
+        bf16_ms, _out = _time_cuda(lambda: torch.mm(xs, yt), 3)
+    log(f"[yardstick] torch.mm, one float pass of [{m}, {kdim}] x [{kdim}, "
+        f"{m}] {out} (contraction only, whole square): {bf16_ms:.3f} ms, "
+        f"{2 * m * m * kdim / (bf16_ms / 1e3):.4g} bf16 FLOP/s | "
+        f"{card_line()}")
 
 
 # ---------------------------------------------------------------------------
@@ -1123,6 +1209,42 @@ def phase_analytics(tmp: Path) -> tuple[dict, dict]:
         if got != name:
             raise AssertionError(f"headline lo_int8 preplaned={pp} ran {got}")
         del sess
+
+    # split_bf16, and the Henikoff weights rounded to bf16 (the bf16-exact
+    # mode), on the prepared headline through both entries: summarize held
+    # to int8x3's counts, then one full batch, kernel against plain.
+    import torch
+
+    w_bf16 = torch.from_numpy(prep[1]).to(torch.bfloat16).float().numpy()
+    for wq, w, mode in (("split_bf16", prep[1], "split_bf16"),
+                        ("none", w_bf16, "exact")):
+        for pp, entry in (("on", "ld_majmin_planes"),
+                          ("off", "ld_majmin_codes")):
+            name = _variant(entry, mode)
+            t0 = time.monotonic()
+            sess = LdSession(prep[0], w, prep[2], DriverConfig(
+                r2_threshold=0.1, preplaned=pp, weight_quant=wq),
+                device="cuda")
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            summ_f, counts = _counted(sess.summarize)
+            t_summ = time.monotonic() - t1
+            need(counts, name, f"{mode} preplaned={pp} summarize")
+            launches[name] = counts[name]
+            if summ_f["n_over_threshold"] != len(rec) \
+                    or summ_f["n_pairs"] != n_pairs:
+                raise AssertionError(f"{mode} preplaned={pp}: {summ_f} vs "
+                                     f"int8x3 {summ}")
+            got, err[name] = check_session_batch(sess, f"headline {name}")
+            if got != name:
+                raise AssertionError(f"headline {mode} preplaned={pp} ran "
+                                     f"{got}")
+            log(f"[analytics] {mode} preplaned={pp} summarize: "
+                f"n_over_threshold {summ_f['n_over_threshold']} == int8x3's;"
+                f" launches {counts}; the session's first summarize "
+                f"{t_summ:.3f}s ({time.monotonic() - t0:.2f}s with set-up "
+                f"and the batch check)")
+            del sess
     return launches, err
 
 
@@ -1510,9 +1632,9 @@ def phase_profile() -> None:
 def phase_entries() -> None:
     """Not in the default run: the codes entry against the preplaned entry,
     whole sessions on Henikoff-weighted loaded alignments at several N, S
-    and seq chunks (set-up, then scans interleaved on, off, off, on after a
-    warm-up of each), so that ``preplaned="auto"`` can be set from the
-    card."""
+    and seq chunks, in int8x3 (the default), lo_int8 and split_bf16 (set-up,
+    then scans interleaved on, off, off, on after a warm-up of each), so
+    that ``preplaned="auto"`` can be set from the card for each kind."""
     import torch
 
     from weightedld_tpu_torch.core.henikoff import henikoff_weights_host
@@ -1522,29 +1644,202 @@ def phase_entries() -> None:
         aln, _seeds = loaded_alignment(np.random.default_rng(n + s), n, s,
                                        N_TRIPLETS)
         w = henikoff_weights_host(aln)
-        sessions, setup = {}, {}
-        for pp in ("on", "off"):
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            sessions[pp] = LdSession(aln, w, np.arange(1, s + 1),
-                                     DriverConfig(r2_threshold=0.1,
-                                                  seq_chunk=chunk,
-                                                  preplaned=pp))
-            setup[pp] = time.monotonic() - t0
-        sess = sessions["on"]
-        plane_bytes = sum(t.numel() for t in sess.operands if t is not None)
-        scans = {"on": [], "off": []}
-        for pp in ("on", "off"):
-            _scan_seconds(sessions[pp])                # warm-up
-        for pp in ("on", "off", "off", "on"):
-            scans[pp].append(_scan_seconds(sessions[pp]))
-        best = {pp: min(v) for pp, v in scans.items()}
-        log(f"[entries] N={n} S={s} {sess.cfg} planes+xq {plane_bytes} B: "
-            f"set-up on {setup['on']:.4f}s off {setup['off']:.4f}s; scans "
-            f"on {scans['on']} off {scans['off']}; best off/on "
-            f"{best['off'] / best['on']:.4f} | {card_line()}")
-        del sessions, sess
-        torch.cuda.empty_cache()
+        for wq in ENTRY_MODES:
+            sessions, setup = {}, {}
+            for pp in ("on", "off"):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                sessions[pp] = LdSession(aln, w, np.arange(1, s + 1),
+                                         DriverConfig(r2_threshold=0.1,
+                                                      seq_chunk=chunk,
+                                                      preplaned=pp,
+                                                      weight_quant=wq))
+                setup[pp] = time.monotonic() - t0
+            sess = sessions["on"]
+            plane_bytes = sum(t.numel() for t in sess.operands
+                              if t is not None)
+            scans = {"on": [], "off": []}
+            for pp in ("on", "off"):
+                _scan_seconds(sessions[pp])                # warm-up
+            for pp in ("on", "off", "off", "on"):
+                scans[pp].append(_scan_seconds(sessions[pp]))
+            best = {pp: min(v) for pp, v in scans.items()}
+            log(f"[entries] {wq} N={n} S={s} {sess.cfg} planes+xq "
+                f"{plane_bytes} B: set-up on {setup['on']:.4f}s off "
+                f"{setup['off']:.4f}s; scans on {scans['on']} off "
+                f"{scans['off']}; best off/on "
+                f"{best['off'] / best['on']:.4f} | {card_line()}")
+            del sessions, sess
+            torch.cuda.empty_cache()
+
+
+# Variants of csrc/ld_majmin.cu for the pace phase: name -> textual
+# edits (old, new), each of which must match the source exactly once.
+_WGMMA_STEPS = """\
+          wgmma_levels<G::kPasses>(D, da, db, scale_d);
+          wgmma_levels<G::kPasses>(D, da + 2, db + 2, 1);
+          wgmma_levels<G::kPasses>(D, da + 4, db + 4, 1);
+          wgmma_levels<G::kPasses>(D, da + 6, db + 6, 1);
+"""
+_BUILD_CALL = """\
+    build_stage<G, R, PRE>(aux, at.width(p),
+                           graw + slot * G::kRawBytes + kBase,
+                           gst + cur.stage * G::kStageBytes, pt);
+"""
+_FETCH_CALL = """\
+      fetch_raw<G, R, VEC16>(p, rows, ahead.k0, ahead.width(p),
+                             raw + slot * G::kRawBytes + kBase, pt);
+"""
+# The epilogue reads the cells but runs no pair algebra or store.  Every
+# variant that drops work drops the algebra too: cells of garbage operands
+# (zeros, NaNs) send its IEEE divisions down their slow path, which would
+# then set the pace.
+_NO_ALGEBRA = ("""\
+          store_pair(p, w.kt, ti, tj, li, lj, (poly >> m) & 1u, cell);""",
+               """\
+          if (c.x == -1.0f)
+            store_pair(p, w.kt, ti, tj, li, lj, (poly >> m) & 1u, cell);""")
+PACE_VARIANTS = {
+    # The epilogue's pair algebra: the reference for the variants below.
+    "no-algebra": (_NO_ALGEBRA,),
+    # The consumers issue no wgmma: the producers' pace.
+    "no-mma": (_NO_ALGEBRA, (_WGMMA_STEPS, "")),
+    # The producers fetch their raw rows but build no operand: the
+    # consumers' pace.
+    "no-build": (_NO_ALGEBRA, (_BUILD_CALL, "")),
+    # Neither: the stage ring's synchronization and the raw fetches.
+    "no-mma-build": (_NO_ALGEBRA, (_WGMMA_STEPS, ""), (_BUILD_CALL, "")),
+    # The builders fetch no raw rows and build from stale raw buffers: the
+    # cost of the loads from L2.
+    "no-fetch": (_NO_ALGEBRA, (_FETCH_CALL, "")),
+    # None of the three: the stage ring's synchronization alone.
+    "ring-only": (_NO_ALGEBRA, (_WGMMA_STEPS, ""), (_BUILD_CALL, ""),
+                  (_FETCH_CALL, "")),
+    # The builders skip their proxy fence before they arrive.
+    "no-fence": (_NO_ALGEBRA, ("""\
+    fence_proxy_async();  // generic-proxy writes -> wgmma reads
+""", "")),
+    # Two raw buffers instead of four: one load in flight, not three.
+    "raw-depth-2": (("""\
+  static constexpr int kRawDepth = kBuild ? 4 : 0;""", """\
+  static constexpr int kRawDepth = kBuild ? 2 : 0;"""),),
+    # Each try_wait may suspend its thread up to 10 ms (the phase's
+    # completion still wakes it) instead of the system's default limit.
+    "suspend-hint": (
+        ("shared::cta.b64 p, [%1], %2;",
+         "shared::cta.b64 p, [%1], %2, %3;"),
+        (': "r"(bar), "r"(parity)',
+         ': "r"(bar), "r"(parity), "r"(10000000u)')),
+    # A waiter that finds the phase incomplete sleeps 64 ns before it
+    # tries again.
+    "backoff": (("""\
+    if (done) return;
+""", """\
+    if (done) return;
+    __nanosleep(64);
+"""),),
+    # 4 operand stages and still 4 raw buffers in the float modes where
+    # shared memory holds them (all but the preplaned lo_int8 and
+    # split_bf16 entries).
+    "4-stages-4-raw": (("""\
+  static constexpr int kStages = kBuild ? 3 : 4;""", """\
+  static constexpr int kStages =
+      kBuild && !(kBf16 && !(PRE && kPasses == 2)) ? 3 : 4;"""),),
+    # The float modes' operand build on one producer warpgroup instead of
+    # two (the A and the B sites).
+    "1-builder": (("kBuilders = kBf16 ? 2 : 1;", "kBuilders = 1;"),),
+    # The float modes with 4 operand stages and 3 raw buffers (one more
+    # stage between producer and consumers, one less load in flight).
+    "4-stages": (("""\
+  static constexpr int kStages = kBuild ? 3 : 4;
+  static constexpr int kRawDepth = kBuild ? 4 : 0;""", """\
+  static constexpr int kStages = kBuild && !kBf16 ? 3 : 4;
+  static constexpr int kRawDepth = kBuild ? (kBf16 ? 3 : 4) : 0;"""),),
+}
+
+# The variants that drop no work.
+EXACT_PACE_VARIANTS = ("suspend-hint", "backoff", "4-stages-4-raw",
+                       "raw-depth-2", "1-builder", "4-stages")
+
+
+def phase_pace() -> None:
+    """Not in the default run: what sets the pace of the factorized body.
+    Each variant of ``PACE_VARIANTS`` is compiled from the source beside
+    the committed body (one nvcc each, started together) and timed through
+    the wrappers on the kernel-timing plan (N=1,000 x S=8,192, 528 tiles
+    in one launch), in turns: committed, variants, variants reversed,
+    committed.  Variants that drop work compute nothing meaningful; those
+    of ``EXACT_PACE_VARIANTS`` are held bit for bit to the committed
+    body."""
+    import ctypes
+    from types import SimpleNamespace
+
+    import torch
+
+    from weightedld_tpu_torch.ops import _build
+    from weightedld_tpu_torch.ops import cuda_ld as K
+
+    dev = torch.device("cuda")
+    src = (_build.CSRC / "ld_majmin.cu").read_text()
+    out = _build.BUILD_DIR / "pace"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, edits in PACE_VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise AssertionError(f"pace variant {name}: edit matches "
+                                     f"{text.count(old)} times")
+            text = text.replace(old, new)
+        cu, so = out / f"{name}.cu", out / f"lib{name}.so"
+        cu.write_text(text)
+        jobs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    base = _build.load_library()
+    libs = {"committed": base}
+    for name, (so, proc) in jobs.items():
+        _o, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc of pace variant {name}:\n{err}")
+        lib = ctypes.CDLL(str(so))
+        fns = {}
+        for entry in ("ld_majmin_codes", "ld_majmin_planes"):
+            fn = getattr(lib, entry)
+            fn.argtypes = _build.ENTRIES[entry]
+            fn.restype = ctypes.c_int
+            fns[entry] = fn
+        libs[name] = SimpleNamespace(**{**vars(base), **fns})
+    order = [*libs, *reversed(libs)]
+    try:
+        for wq in ("split_bf16", "lo_int8", "exact", "int8x3"):
+            codes, wr, auxc, ti, tj, em, kw = _case_inputs(
+                11, (0, 1, 4), N_HEAD, S_TIMED, 256, 1024, wq, dev)
+            em = torch.ones_like(em)
+            planes = K.build_majmin_planes(codes, auxc, tile=256)
+            xq = K.build_majmin_xq(planes, wr, 3) if wq == "int8x3" else None
+            for entry, fn, ops in (
+                    ("codes", K.tile_stats_majmin, (codes,)),
+                    ("planes", K.tile_stats_majmin_pre, (planes, xq))):
+                ms, stats = {name: [] for name in libs}, {}
+                for name in order:
+                    _build._lib = libs[name]
+                    t, stats[name] = _time_cuda(
+                        lambda: fn(*ops, wr, auxc, ti, tj, em, **kw), 10)
+                    ms[name].append(round(t, 4))
+                ref = stats["committed"]
+                for name in EXACT_PACE_VARIANTS:
+                    got = stats[name]
+                    if not (torch.equal(got.keep, ref.keep) and torch.equal(
+                            got.r2[ref.keep], ref.r2[ref.keep])):
+                        raise AssertionError(f"{name} {wq} {entry} differs "
+                                             "from the committed body")
+                log(f"[pace] {wq} {entry}: ms per launch of 528 tiles "
+                    f"{ms} ({', '.join(EXACT_PACE_VARIANTS)} bit-equal to "
+                    f"committed) | {card_line()}")
+                del stats, ref, got
+    finally:
+        _build._lib = base
 
 
 DEFAULT_PHASES = ("build", "kernels", "main", "cpu-vs-card", "analytics",
@@ -1555,9 +1850,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of build, kernels, main, "
-                    "cpu-vs-card, analytics, ambiguous, profile, entries "
-                    "and yardstick (default: the first six, which the "
-                    "result line needs)")
+                    "cpu-vs-card, analytics, ambiguous, profile, entries, "
+                    "pace and yardstick (default: the first six, which "
+                    "the result line needs)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -1624,6 +1919,8 @@ def main() -> int:
             phase_profile()
         if "entries" in phases:
             phase_entries()
+        if "pace" in phases:
+            phase_pace()
         if "yardstick" in phases and "kernels" not in phases:
             phase_yardstick()              # the kernels phase runs it too
     if set(phases) != set(DEFAULT_PHASES):
@@ -1636,7 +1933,9 @@ def main() -> int:
         f"--unweighted CLI run; the lo_int8 variants from the headline "
         f"lo_int8 --stats-only CLI run (planes) and codes-entry run, the "
         f"ambiguous lo_int8 CLI run (ld_general) and its preplaned "
-        f"kernel='general' lo_int8 run: {launches}")
+        f"kernel='general' lo_int8 run; the split_bf16 and bf16-exact "
+        f"variants from the headline summarize runs of each entry: "
+        f"{launches}")
     missing = [name for name in KERNELS if not launches.get(name)]
     if missing:
         raise AssertionError(f"no main-path launch of {missing}")

@@ -126,8 +126,8 @@ def _run_entry(a, kw, nlev, entry):
         got = K.tile_stats_majmin_pre(planes, xq, *args, **kw)
         ref = K.tile_stats_majmin_pre_plain(planes, xq, *args, **kw)
         kernel = "ld_majmin_planes"
-    if kw["wquant"] == "lo_int8":
-        kernel += "_lo_int8"
+    kernel = K.launch_name(kernel, K.weight_kind(
+        kw["exact_weights"], kw["unit_weights"], kw["wquant"]))
     torch.cuda.synchronize()
     assert K.launches[kernel] == before[kernel] + 1
     return got, ref
@@ -141,14 +141,14 @@ def test_kernel_matches_plain_on_card(cuda_device, name, entry):
     _assert_match(*_run_entry(a, kw, nlev, entry))
 
 
-# The integer weight modes' tensor-core body at its edges.  id -> (seed,
+# The tensor-core body at its edges, in every weight mode.  id -> (seed,
 # alphabet, n_seqs, n_sites, tile, seq_chunk, emit kind, monomorphic first
 # tile): a tile below, between and above the 64 x 32 site block of a CTA
 # (512: the largest the compaction takes); seq chunks that are not
-# multiples of 16 (N_pad neither), so every chunk ends in a partial
-# 128-column stage staged 4 bytes at a time; three 1,024-column chunks;
-# batches with no emitting tile pair and with every third one padding;
-# a tile whose every site is monomorphic.
+# multiples of 16 (N_pad neither), so every chunk ends in a partial stage
+# (128 int8 or 64 bf16 columns) staged 4 bytes at a time; three
+# 1,024-column chunks; batches with no emitting tile pair and with every
+# third one padding; a tile whose every site is monomorphic.
 WGMMA_CASES = {
     "t48-c40": (41, (0, 1, 2, 3, 4), 150, 300, 48, 40, "mixed", False),
     "t96-c120": (42, (0, 1, 4), 333, 500, 96, 120, "mixed", False),
@@ -159,9 +159,14 @@ WGMMA_CASES = {
 }
 
 
+# Bit for bit in every mode whose f32 partial sums are exact (the integer
+# modes; lo_int8's w_hi and q passes and bf16-exact weights here, the note
+# at the top of csrc/ld_majmin.cu); split_bf16's w_lo pass is held to
+# RTOL / ATOL.
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["codes", "pre"])
-@pytest.mark.parametrize("mode", ["unit", "int8", "int8x3"])
+@pytest.mark.parametrize("mode", ["unit", "int8", "int8x3", "exact",
+                                  "split_bf16", "lo_int8"])
 @pytest.mark.parametrize("name", list(WGMMA_CASES))
 def test_wgmma_body_bit_equal_on_card(cuda_device, name, mode, entry):
     seed, alphabet, n, s, tile, chunk, emit_kind, mono = WGMMA_CASES[name]
@@ -173,10 +178,35 @@ def test_wgmma_body_bit_equal_on_card(cuda_device, name, mode, entry):
     assert bool(keep.any()) == (emit_kind != "none")
     if mono:
         assert not keep[a["tile_i"].cpu() == 0].any()
+    tol = (RTOL, ATOL) if mode == "split_bf16" else (0, 0)
     for f in ("d", "d_prime", "r2"):
         torch.testing.assert_close(getattr(got, f).cpu()[keep],
-                                   getattr(ref, f).cpu()[keep], rtol=0,
-                                   atol=0, equal_nan=True, msg=f)
+                                   getattr(ref, f).cpu()[keep], rtol=tol[0],
+                                   atol=tol[1], equal_nan=True, msg=f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["ld_majmin_codes", "ld_majmin_planes"])
+@pytest.mark.parametrize("nlev,nflt", [(0, 3), (2, 1), (4, 0), (0, 0)])
+def test_unbuilt_weight_mode_is_refused(cuda_device, entry, nlev, nflt):
+    # dispatch builds one body in six (nlev, nflt) modes and refuses the
+    # rest with cudaErrorInvalidValue (1) before anything runs.
+    from weightedld_tpu_torch.ops._build import load_library
+
+    a, kw, _ = _inputs("dna-int8x3", cuda_device)
+    k = a["tile_i"].shape[0]
+    out = torch.empty((k, kw["tile"], kw["tile"]), device=cuda_device)
+    keep = torch.empty((k, kw["tile"], kw["tile"]), dtype=torch.int8,
+                       device=cuda_device)
+    s_pad, n_pad = a["codes"].shape
+    rc = getattr(load_library(), entry)(
+        a["codes"].data_ptr(), a["codes"].data_ptr(), 0, 0,
+        a["auxc"].data_ptr(), a["tile_i"].data_ptr(), a["tile_j"].data_ptr(),
+        a["emit"].data_ptr(), out.data_ptr(), out.data_ptr(),
+        out.data_ptr(), keep.data_ptr(), k, kw["tile"], kw["n_sites"],
+        s_pad, n_pad, kw["seq_chunk"], nlev, nflt,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 1
 
 
 @pytest.mark.cuda
@@ -190,38 +220,40 @@ def test_wrapper_rejects_mixed_devices(cuda_device):
 @pytest.mark.cuda
 def test_auto_preplaned_picks_planes_that_fit(cuda_device):
     # The preplaned entry scans faster in every weight mode measured on
-    # the card (integer modes on the tensor cores included), so "auto"
-    # takes the planes whenever they fit plane_budget.
+    # the card at 16-byte-aligned seq chunks, so "auto" takes the planes
+    # whenever they fit plane_budget.
     rng = np.random.default_rng(12)
     aln = rng.choice((0, 1, 4), size=(300, 500)).astype(np.int8)
     w = (rng.random(300) + 0.05).astype(np.float32)
-    for wq in ("none", "int8", "lo_int8"):
+    for wq in ("none", "int8", "lo_int8", "split_bf16"):
         sess = LdSession(aln, w, np.arange(500),
                          DriverConfig(tile=128, weight_quant=wq),
                          device=cuda_device)
         assert sess.preplaned and sess.codes_dev is None, wq
         planes, xq = sess.operands
-        assert planes is not None and (xq is None) == (wq == "lo_int8"), wq
+        assert planes is not None, wq
+        assert (xq is None) == (wq in ("lo_int8", "split_bf16")), wq
     assert plane_budget(cuda_device) > 0
 
 
 @pytest.mark.cuda
 def test_auto_preplaned_takes_codes_for_4_byte_staging(cuda_device):
-    # A seq chunk that is not a multiple of 16 leaves the integer modes'
-    # preplaned entry 4-byte copies, where the codes entry scans faster;
-    # the float modes (lo_int8 here) keep the planes.
+    # A seq chunk that is not a multiple of 16 leaves the preplaned entry
+    # 4-byte copies of its operand rows, where the codes entry scans faster
+    # in every weight mode (integer and float).
     rng = np.random.default_rng(12)
     aln = rng.choice((0, 1, 4), size=(300, 500)).astype(np.int8)
     w = (rng.random(300) + 0.05).astype(np.float32)
-    for wts, wq, planes in ((w, "none", False), (w, "int8", False),
-                            (np.ones(300, np.float32), "none", False),
-                            (w, "lo_int8", True)):
+    exact = ((np.arange(300) % 4 + 1) / 4.0).astype(np.float32)
+    for wts, wq in ((w, "none"), (w, "int8"), (np.ones(300, np.float32),
+                                               "none"),
+                    (w, "lo_int8"), (w, "split_bf16"), (exact, "none")):
         sess = LdSession(aln, wts, np.arange(500),
                          DriverConfig(tile=128, seq_chunk=40,
                                       weight_quant=wq),
                          device=cuda_device)
-        assert sess.preplaned == planes, wq
-        assert (sess.codes_dev is None) == planes, wq
+        assert not sess.preplaned, wq
+        assert sess.codes_dev is not None, wq
 
 
 @pytest.mark.cuda

@@ -314,7 +314,135 @@ def test_cpu_wrapper_launches_nothing():
     c, t = _cpu_args()
     K.tile_stats_majmin(t["codes"], t["weights"], t["auxc"], t["tile_i"],
                         t["tile_j"], t["emit"], **c["kw"])
-    assert set(K.launches) == {"ld_majmin_codes", "ld_majmin_planes",
-                               "ld_majmin_codes_lo_int8",
-                               "ld_majmin_planes_lo_int8"}
+    assert set(K.launches) == {
+        entry + mode for entry in ("ld_majmin_codes", "ld_majmin_planes")
+        for mode in ("", "_lo_int8", "_split_bf16", "_bf16_exact")}
     assert not any(K.launches.values())
+
+
+# ---------------------------------------------------------------------------
+# The float weight modes' host pieces: weight kind, launch names, the bf16
+# pass bits the kernel builds its B operand from, the auto entry rule.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("exact,unit,wquant,kind", [
+    (False, True, "int8x3", "unit"),
+    (True, True, "", "unit"),
+    (True, False, "lo_int8", "exact"),
+    (False, False, "int8", "int"),
+    (False, False, "int8x3", "int"),
+    (False, False, "", "split"),
+    (False, False, "lo_int8", "lo"),
+])
+def test_weight_kind_follows_jax_precedence(exact, unit, wquant, kind):
+    assert K.weight_kind(exact, unit, wquant) == kind
+
+
+@pytest.mark.parametrize("entry", ["ld_majmin_codes", "ld_majmin_planes"])
+@pytest.mark.parametrize("kind,suffix", [
+    ("unit", ""), ("int", ""), ("lo", "_lo_int8"), ("split", "_split_bf16"),
+    ("exact", "_bf16_exact")])
+def test_launch_name_of_each_entry_and_kind(entry, kind, suffix):
+    assert K.launch_name(entry, kind) == entry + suffix
+    assert K.launch_name(entry, kind) in K.launches
+
+
+def _jax_float_passes(w: np.ndarray, kind: str) -> list:
+    """The JAX kernel's bf16 pass weights (pallas_ld.py:922-935) as bf16
+    numpy rows: w_hi for every kind, then w_lo for split_bf16."""
+    wj = jnp.asarray(w)[None, :]
+    w_hi = wj.astype(jnp.bfloat16)
+    passes = [np.asarray(w_hi)[0]]
+    if kind == "split":
+        w_lo = (wj - w_hi.astype(jnp.float32)).astype(jnp.bfloat16)
+        passes.append(np.asarray(w_lo)[0])
+    return passes
+
+
+@pytest.mark.parametrize("kind", ["exact", "split", "lo"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_float_pass_bits_equal_jax_products(kind, seed):
+    # The kernel's B operand is the indicator's set halfwords holding these
+    # bits: the same values as JAX's xs * w_hi (pallas_ld.py:929) and
+    # xs * w_lo; lo_int8's q level rides as one more pass, exact in bf16.
+    rng = np.random.default_rng(seed)
+    n = 70
+    w = (rng.random(n) + 0.05).astype(np.float32)
+    w /= w.max()
+    if kind == "exact":
+        w = ((np.arange(n) % 4 + 1) / 4.0).astype(np.float32)
+    wr = P.pad_weights_lo_int8(w, 64) if kind == "lo" \
+        else P.pad_weights(w, 64)
+    bits = K.float_pass_bits(torch.from_numpy(wr), kind)
+    passes = _jax_float_passes(wr[0], kind)
+    want = passes + ([wr[1].astype(ml_dtypes.bfloat16)] if kind == "lo"
+                     else [])
+    assert bits.dtype == torch.int16 and bits.is_contiguous()
+    assert bits.shape == (len(want), wr.shape[1])
+    for got, ref in zip(bits.numpy(), want):
+        np.testing.assert_array_equal(got.view(np.uint16),
+                                      np.asarray(ref).view(np.uint16))
+    if kind == "lo":
+        np.testing.assert_array_equal(
+            bits[1].view(torch.bfloat16).float().numpy(), wr[1])
+    x = rng.integers(0, 2, size=(8, wr.shape[1])).astype(np.int8)
+    xs = jnp.asarray(x).astype(jnp.bfloat16)
+    for p, w_pass in enumerate(passes):
+        prod = np.asarray(xs * jnp.asarray(w_pass)[None, :])
+        port = torch.where(torch.from_numpy(x) != 0, bits[p], 0)
+        np.testing.assert_array_equal(
+            port.view(torch.bfloat16).float().numpy(),
+            prod.astype(np.float32))
+
+
+GIB = 1 << 30
+
+
+@pytest.mark.parametrize("chunk,plane_bytes,budget,want", [
+    (1024, GIB, 2 * GIB, True),
+    (64, GIB, 2 * GIB, True),
+    (2048, 2 * GIB, 2 * GIB, True),
+    (200, GIB, 2 * GIB, False),             # 4-byte plane copies
+    (40, GIB, 2 * GIB, False),
+    (1024, 3 * GIB, 2 * GIB, False),        # the planes do not fit
+    (1024, 1, 0, False),                    # the CPU: no budget
+])
+def test_auto_preplaned_rule(chunk, plane_bytes, budget, want):
+    from weightedld_tpu_torch.runtime.driver import auto_preplaned
+
+    assert auto_preplaned(chunk, plane_bytes, budget) is want
+
+
+@pytest.mark.parametrize("mode", ["int8x3", "int8", "unit", "exact",
+                                  "split_bf16", "lo_int8"])
+@pytest.mark.parametrize("chunk", [64, 40])
+def test_session_auto_entry_in_every_weight_mode(monkeypatch, mode, chunk):
+    # The same rule in every weight mode: the planes when they fit and the
+    # seq chunk is a multiple of 16, else the codes; the float modes stage
+    # the planes alone (their B rows are built in-kernel).
+    from weightedld_tpu_torch.runtime import driver
+
+    monkeypatch.setattr(driver, "plane_budget", lambda device: 1 << 40)
+    rng = np.random.default_rng(3)
+    aln = rng.choice((0, 1, 4), size=(60, 90)).astype(np.int8)
+    w = {"unit": np.ones(60, np.float32),
+         "exact": ((np.arange(60) % 4 + 1) / 4.0).astype(np.float32)}.get(
+             mode, (rng.random(60) + 0.05).astype(np.float32))
+    wq = mode if mode in ("int8", "split_bf16", "lo_int8") else "none"
+    sess = driver.LdSession(aln, w, np.arange(90),
+                            driver.DriverConfig(tile=32, seq_chunk=chunk,
+                                                weight_quant=wq),
+                            device="cpu")
+    kind = K.weight_kind(sess.kernel_kw["exact_weights"],
+                         sess.kernel_kw["unit_weights"],
+                         sess.kernel_kw["wquant"])
+    assert kind == {"int8x3": "int", "int8": "int"}.get(mode, {
+        "split_bf16": "split", "lo_int8": "lo"}.get(mode, mode))
+    assert sess.preplaned == (chunk % 16 == 0)
+    if sess.preplaned:
+        planes, xq = sess.operands
+        assert planes.shape == (2 * sess.plan.s_pad, 64)
+        assert (xq is None) == (kind != "int")
+    else:
+        assert sess.operands[0].shape == (sess.plan.s_pad, chunk * 2)

@@ -14,86 +14,103 @@
 // contraction over the sequence axis, then D, D', r2 and the keep mask.
 // Weight modes: NLEV int8 passes (unit weights: one count pass; int8 / int8x3
 // cascades: two or three int8 x int8 -> int32 passes combined in f32 as
-// sum_l a_l * J_l once per seq_chunk), or NFLT f32 passes (bf16-exact weights:
-// one pass; split_bf16: w_hi and w_lo passes) accumulated in f32, or both
-// (lo_int8, NLEV = NFLT = 1: the f32 pass of w_hi = bf16(w) plus one int8
-// pass of the quantized residual q, combined as F + alpha * J once per
-// seq_chunk, pallas_ld.py:926-930 and 1173-1177).
+// sum_l a_l * J_l once per seq_chunk), or NFLT bf16 passes accumulated in f32
+// (bf16-exact weights: one pass; split_bf16: w_hi and w_lo passes, summed
+// once per seq_chunk), or both (lo_int8, NLEV = NFLT = 1: the pass of
+// w_hi = bf16(w) plus one of the quantized residual q, combined as
+// F + alpha * J once per seq_chunk, pallas_ld.py:926-930 and 1173-1177).
 //
-// Two bodies, chosen by weight mode (dispatch below), never as a fallback:
+// One body, ld_majmin_wgmma, runs every mode on the tensor cores: the
+// integer modes (NFLT = 0) on int8 wgmma, the float modes (NFLT > 0) on bf16
+// wgmma.  dispatch builds no other body and falls back to none.
 //
-// 1. The integer modes (unit, int8, int8x3: NLEV = 1..3, NFLT = 0) run on the
-//    int8 tensor cores, ld_majmin_wgmma.
-//    What bounds it.  Operations: int8x3 is 4 cells x 3 levels x 2
-//    operations per pair and column, 0.43 ms for the 528 tile pairs of
-//    N_pad = 1,024, T = 256 at the 1,979 TOP/s int8 peak, against 0.13 ms
-//    of HBM traffic (13 output bytes per pair).  Inside the SM, shared
-//    memory: per 128-column stage the wgmma of both consumer warpgroups read
-//    64 KB (each its own 8 KB of A, both the same 24 KB of B) and the
-//    producer writes 40 KB, for 3.1 M MACs: ~139 bytes per clock at the
-//    full tensor rate against the SM's 128, so even a perfect schedule stays
-//    under ~90 % of the peak.  The preplaned entry reads 320 operand bytes
-//    per column per CTA from L2 (~80 ops per byte); the codes entry reads
-//    96 code bytes + 3 q bytes (~500 ops per byte) but builds its operands
-//    on one warpgroup's CUDA cores, which sets its pace (PERF.md).
-//    What the design does.  One CTA owns 64 A sites x 32 B sites of a tile
-//    pair.  A = the [maj; dmin] 0/1 indicator rows of the A sites, M = 64 per
-//    consumer warpgroup (32 sites); B = the indicator rows of the B sites
-//    times each int8 level q_l, stacked along N, so one
-//    wgmma.m64n{64,128,192}k32.s32.s8.s8 per 32 columns gives every level's
-//    joints of the warpgroup's 1,024 pairs (the q_l side does not matter:
-//    the int32 joints are exact in any order).  Rows are ordered in groups
-//    of 8 (eight sites' maj rows, then the same sites' dmin rows) on both
-//    sides, so the accumulator fragment (rows r, r+8; columns {c, c+1} + 8k)
-//    gives each thread all 4 cells x NLEV levels of its own 8 pairs: the
-//    combine needs no exchange.  A ring of shared-memory stages of 128
-//    columns (128-byte swizzle, the wgmma K-major layout) is filled by one
-//    producer warpgroup and drained by two consumer warpgroups through
-//    mbarriers (full: the producer's writes or cp.async completions; empty:
-//    the consumers' wgmma reads done).  The preplaned entry stages planes /
-//    xq rows with cp.async into 4 stages (16 bytes where N_pad and seq_chunk
-//    are multiples of 16, else 4 bytes; zero-filled past the chunk end); the
-//    codes entry keeps 3 stages of code loads in flight (cp.async into raw
-//    buffers) while it builds the landed one into one of 3 operand stages:
-//    indicators from __vcmpeq4 against the per-site aux, masked with q_l,
-//    written in the swizzled layout.  Rows
-//    past the tile edge read the tile's last site and are masked at the
-//    store.  At each reference seq chunk end the consumers wait for their
-//    wgmma groups and combine the int32 joints into the f32 running cells,
-//    which live in a shared buffer (registers stay for the accumulators);
-//    after an item's last chunk a fourth, epilogue warpgroup runs the pair
-//    algebra and the stores from that buffer while the consumers contract
-//    the next item.  The CTAs are persistent (one per SM, items strided by
-//    the grid), so the ring runs on across items.  setmaxnreg gives the
-//    consumers 160 registers, the producer and the epilogue 96 each.
+// What bounds it.  Operations: int8x3 is 4 cells x 3 levels x 2 operations
+// per pair and column, 0.43 ms for the 528 tile pairs of N_pad = 1,024,
+// T = 256 at the 1,979 TOP/s int8 peak (split_bf16: 2 bf16 passes, 0.57 ms
+// at 989 TFLOP/s), against 0.13 ms of HBM traffic (13 output bytes per
+// pair).  Inside the SM, shared memory: per stage the wgmma of both
+// consumer warpgroups read their A rows and both the same B rows, and the
+// producer writes every operand byte once, ~139 bytes per clock at the full
+// int8 rate against the SM's 128, so even a perfect schedule stays under
+// ~90 % of the peak.  The preplaned integer entry reads 320 operand bytes
+// per column per CTA from L2; the codes entry reads 96 code bytes + the
+// weight bytes but builds its operands on one warpgroup's CUDA cores, which
+// sets its pace (PERF.md); the float modes build their operands in both
+// entries, at twice the shared-memory bytes per column, and at the bf16
+// peak their wgmma operand reads alone take 96 (two passes) to 128
+// (bf16-exact) of those 128 bytes per clock.
 //
-// 2. The float modes (bf16-exact, split_bf16, lo_int8: NFLT > 0) keep the
-//    CUDA-core body ld_majmin_dp4a: a CTA of 32 x 32 site pairs, 2 x 2 pairs
-//    x 4 cells per thread, the f32 passes summed from a 16-entry table per
-//    staged word (below), lo_int8's int8 residual pass on __dp4a.  It is
-//    bound by instruction issue on CUDA cores, at a few percent of the
-//    operation bound; its tensor-core redesign (bf16 wgmma) is later work.
+// What the design does.  One CTA owns 64 A sites x 32 B sites of a tile
+// pair.  A = the [maj; dmin] 0/1 indicator rows of the A sites, M = 64 per
+// consumer warpgroup (32 sites); B = the indicator rows of the B sites times
+// each weight pass (int8 q_l, or the bf16 bits of a float pass), stacked
+// along N, so one wgmma.m64n{64,128,192}k32.s32.s8.s8 per 32 columns, or
+// wgmma.m64n{64,128}k16.f32.bf16.bf16 per 16 columns, gives every pass's
+// joints of the warpgroup's 1,024 pairs (each product 0/1 x weight is exact
+// on either operand).  Rows are ordered in groups of 8 (eight sites' maj
+// rows, then the same sites' dmin rows) on both sides, so the accumulator
+// fragment (rows r, r+8; columns {c, c+1} + 8k) gives each thread all 4
+// cells x passes of its own 8 pairs: the combine needs no exchange.  A ring
+// of shared-memory stages of 128-byte swizzled rows (the wgmma K-major
+// layout: 128 int8 or 64 bf16 columns per stage) is filled by one producer
+// warpgroup (two in the float modes: one builds the A sites' rows, one the
+// B sites') and drained by two consumer warpgroups through mbarriers (full:
+// the producer's writes or cp.async completions; empty: the consumers'
+// wgmma reads done).  The preplaned integer entry stages planes / xq rows
+// with cp.async into 4 stages (16 bytes where N_pad and seq_chunk are
+// multiples of 16, else 4 bytes; zero-filled past the chunk end).  Every
+// other (entry, mode) builds its operands: the producer keeps 3 stages of
+// raw loads in flight (cp.async into raw buffers: code rows, or under the
+// float modes the planes' maj and dmin rows; the weight rows) while it
+// builds the landed one into one of 3 operand stages: byte masks from
+// __vcmpeq4 against the per-site aux (codes) or from the 0/1 plane bytes
+// times 0xff (planes), then int8 A = mask & 1 and B = mask & q_l, or bf16
+// halfword masks (byte_perm) and A = mask & bf16(1.0), B = mask & the
+// pass's bf16 weight bits, written in the swizzled layout.  Rows past the
+// tile edge read the tile's last site and are masked at the store.  At each
+// reference seq chunk end the consumers wait for their wgmma groups and
+// combine the joints into the f32 running cells, which live in a shared
+// buffer (registers stay for the accumulators); after an item's last chunk
+// a fourth, epilogue warpgroup runs the pair algebra and the stores from
+// that buffer while the consumers contract the next item.  The CTAs are
+// persistent (one per SM, items strided by the grid), so the ring runs on
+// across items.  setmaxnreg gives the consumers 160 registers in the
+// integer modes (at most 96 accumulators: int8x3's s32) and 120 in the
+// float modes (at most 64: split_bf16's and lo_int8's f32), the producers
+// and the epilogue 96 or 80 each.
+//
+// lo_int8's residual level q rides as a second bf16 pass beside w_hi: q is
+// an integer in [-127, 127], exact in bf16, and its joint J (|J| <= 127 *
+// seq_chunk < 2^24, driver.py MAX_SEQ_CHUNK) is exact in the f32
+// accumulator, so F + alpha * J takes the int8 pass's value while every
+// stage holds one operand type (A is built once, not as bf16 and int8).
 //
 // Numerics that must match the JAX package bit for bit where it is exact:
 //   * The int32 joints are exact; the f32 combine runs once per reference
-//     seq chunk: cells = a1*J1 + a2*J2 + a3*J3 (left to right), then
-//     acc = cells on the first chunk and acc += cells after.
+//     seq chunk: cells = a1*J1 + a2*J2 + a3*J3 (left to right), F_hi + F_lo,
+//     F + alpha * J or F, then acc = cells on the first chunk and
+//     acc += cells after.
 //   * Build with -fmad=false and without --use_fast_math: no FMA contraction
 //     of the combine or of _pair_algebra's products-minus-observations, IEEE
 //     division for 1/safe_w, D' and r2, and the reciprocal is multiplied in,
 //     as JAX does.
 //   * The 0.95 skip rule is an f32 compare (0.95f): at P = 19/20 the f32
 //     value equals f32(0.95) and the pair is skipped.
-//   * Float weight passes accumulate in f32 one staged word at a time: the
-//     f32 sum of the word's selected weights (column order) comes from a
-//     16-entry table per word, indexed by the 4-bit mask of its 0/1 bytes
-//     (one shared-memory read and one add per cell and word instead of four
-//     multiply-adds).  Where the f32 partial sums are exact, as for weights
-//     of a bounded dynamic range, this equals the plain version's float64
-//     sum rounded once; elsewhere it is within f32 rounding.
+//   * The plain versions form each float pass as a float64 sum rounded once
+//     to f32.  The tensor core's f32 sum over a chunk equals it wherever
+//     every partial sum is exact in f32: when every selected weight is a
+//     multiple of 2^e_min and the chunk total is below 2^(e_min + 24)
+//     (products of 0/1 and bf16 are exact, and the alignment inside the
+//     tensor core then drops no bit).  lo_int8's q pass always meets it;
+//     its w_hi pass and bf16-exact weights do for a bounded range (weights
+//     in [2^-5, 1] are multiples of 2^-12, so any N < 4,096 is exact).
+//     split_bf16's w_lo pass need not (w_lo can lie far below w_hi): there
+//     the result is within f32 rounding of the plain version's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -102,9 +119,9 @@ struct Params {
   const int8_t* q;        // [nlev, n_pad] int8 cascade levels     (codes)
   const int8_t* planes;   // [2*s_pad, n_pad] [maj; dmin] per tile (planes)
   const int8_t* xq;       // [nlev, 2*s_pad, n_pad] planes * q_l   (planes)
-                          // lo_int8: the [n_pad] q row instead
-  const float* scale;     // [nlev] cascade scales a_l
-  const float* wf;        // [nflt, n_pad] f32 pass weights
+  const float* scale;     // [nlev] cascade scales a_l (lo_int8: alpha)
+  const uint16_t* wb;     // [nlev + nflt, n_pad] bf16 bits of the float
+                          // passes (lo_int8: w_hi, then q)
   const int32_t* auxc;    // [s_pad, 3] (major, dmin, distinct)
   const int32_t* tile_i;  // [k]
   const int32_t* tile_j;  // [k]
@@ -119,10 +136,6 @@ struct Params {
   int n_pad;
   int seq_chunk;
 };
-
-__device__ __forceinline__ uint32_t ld_word(const int8_t* base, int64_t off) {
-  return *reinterpret_cast<const uint32_t*>(base + off);
-}
 
 // _pair_algebra (pallas_ld.py:434-476), operation for operation.
 __device__ __forceinline__ void pair_algebra(float n_mm, float n_md, float n_dm,
@@ -181,51 +194,76 @@ __device__ __forceinline__ void store_pair(const Params& p, int64_t kt, int ti,
 }
 
 // ---------------------------------------------------------------------------
-// 1. The integer weight modes on wgmma.
+// Geometry.
 // ---------------------------------------------------------------------------
 
 constexpr int kWA = 64;              // A-side sites per CTA (32 per warpgroup)
 constexpr int kWB = 32;              // B-side sites per CTA
-constexpr int kWK = 128;             // sequence columns (bytes) per stage row
+constexpr int kRowBytes = 128;       // bytes per swizzled operand row
 constexpr int kConsumers = 256;      // two consumer warpgroups
-constexpr int kProducers = 128;      // one producer warpgroup
+constexpr int kProducers = 128;      // threads of one producer warpgroup
 constexpr int kFinishers = 128;      // one epilogue warpgroup
-// Registers per thread of each role after setmaxnreg: multiples of 8 that
-// fill the SM's 65,536 (ptxas then spills nothing in any role).
-constexpr int kConsumerRegs = 160;
-constexpr int kProducerRegs = 96;
-constexpr int kFinisherRegs = 96;
-static_assert(kConsumers * kConsumerRegs + kProducers * kProducerRegs +
-                      kFinishers * kFinisherRegs ==
-                  65536,
-              "setmaxnreg split");
 constexpr int kPairs = kWA * kWB;    // site pairs per work item
 constexpr int kARows = 2 * kWA;      // [maj; dmin] rows of the A sites
-constexpr int kABytes = kARows * kWK;
+constexpr int kABytes = kARows * kRowBytes;
 
-// Sites whose code rows one codes-producer thread stages (kCodeSitesA of
-// them on the A side).
-constexpr int kCodeSites = (kWA + kWB) / (kProducers / 8);
-constexpr int kCodeSitesA = kWA / (kProducers / 8);
-
-// Shared memory of one CTA.  The preplaned entry keeps 4 operand stages
-// in flight from L2; the codes entry 3 operand stages and 4 buffers of raw
-// chunks, so 3 stages of code loads are in flight while one is built.
-template <int NLEV, bool PRE>
-struct Ring {
-  static constexpr int kStages = PRE ? 4 : 3;
-  static constexpr int kRawDepth = PRE ? 0 : 4;
-  static constexpr int kBRows = 2 * kWB * NLEV;   // per level: [maj; dmin]
-  static constexpr int kStageBytes = kABytes + kBRows * kWK;
-  // The codes producer's raw chunks of one stage: its code chunks and the
-  // q chunks of every level, 16 bytes each, in slots of its own.
-  static constexpr int kRawBytes = (kCodeSites + NLEV) * kProducers * 16;
+// The shape of one (weight mode, entry) instantiation: its operand type,
+// stage width, shared memory, and the producer's share of a stage.
+template <int NLEV, int NFLT, bool PRE>
+struct Geom {
+  static constexpr bool kBf16 = NFLT > 0;       // bf16 operands, f32 sums
+  static constexpr int kPasses = NLEV + NFLT;   // weight blocks along N
+  static constexpr int kCols = kBf16 ? 64 : 128;  // columns per stage
+  // Whether the producer builds the operands from raw rows (every entry
+  // and mode but the preplaned integer one, which copies planes / xq).
+  static constexpr bool kBuild = kBf16 || !PRE;
+  static constexpr int kStages = kBuild ? 3 : 4;
+  static constexpr int kRawDepth = kBuild ? 4 : 0;
+  static constexpr int kBRows = 2 * kWB * kPasses;  // per pass: [maj; dmin]
+  static constexpr int kStageBytes = kABytes + kBRows * kRowBytes;
+  // A build thread covers one 16-column piece of a row (kPieces per stage
+  // row) for its share of the kSites sites (kSitesA of them on the A
+  // side), reading kSrc raw rows per site (the code row; the planes' maj
+  // and dmin rows) and, where it builds B rows, kWSlots 16-byte slots of
+  // weights (q_l; two per bf16 pass).
+  static constexpr int kPieces = kCols / 16;
+  static constexpr int kRound = kProducers / kPieces;  // sites per round
+  static constexpr int kSites = (kWA + kWB) / kRound;
+  static constexpr int kSitesA = kWA / kRound;
+  static constexpr int kSrc = PRE ? 2 : 1;
+  static constexpr int kWSlots = kBf16 ? 2 * kPasses : NLEV;
+  // Producer warpgroups: the float modes' operand build, which sets their
+  // pace (PERF.md), takes two, one building the A sites' rows and one the
+  // B sites' (their B rows carry every pass: about as much work).
+  static constexpr int kBuilders = kBf16 ? 2 : 1;
+  static constexpr int kProducerThreads = kBuilders * kProducers;
+  static constexpr int kThreads = kConsumers + kProducerThreads + kFinishers;
+  // Registers per thread of each role after setmaxnreg: multiples of 8 that
+  // share out the CTA's launch allocation (kLaunchRegs per thread, the most
+  // that fits kThreads in the SM's 65,536; setmaxnreg moves registers
+  // between warpgroups and adds none).  Consumers hold at most 96
+  // accumulators (int8x3's); 64 in the float modes.
+  static constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
+  static constexpr int kConsumerRegs = kBuilders == 2 ? 120 : 160;
+  static constexpr int kOtherRegs = kBuilders == 2 ? 80 : 96;
+  static_assert(kConsumers * kConsumerRegs +
+                        (kProducerThreads + kFinishers) * kOtherRegs ==
+                    kThreads * kLaunchRegs,
+                "setmaxnreg split");
+  // Raw slots of builder warpgroup 0 (the A sites, and with one builder the
+  // B sites and the weights too) and of builder 1 (the B sites, weights).
+  static constexpr int kSlots0 =
+      kBuilders == 2 ? kSitesA * kSrc : kSites * kSrc + kWSlots;
+  static constexpr int kSlots1 =
+      kBuilders == 2 ? (kSites - kSitesA) * kSrc + kWSlots : 0;
+  static constexpr int kRawBytes = (kSlots0 + kSlots1) * kProducers * 16;
   // The f32 cells of one work item, handed to the epilogue warpgroup.
   static constexpr int kCellBytes = kPairs * 16;
   // Stages (1,024-byte aligned for the swizzle atom), the raw buffers, the
   // cells, then the full and empty mbarriers of the stages and the cells.
   static constexpr int kSmem = kStages * kStageBytes + kRawDepth * kRawBytes +
                                kCellBytes + 1024 + 2 * (kStages + 1) * 8;
+  static_assert(kSmem <= 232448, "shared memory of one CTA");
 };
 
 // Byte offset of 16-byte chunk `ch` of operand row `row` in the 128-byte
@@ -450,7 +488,67 @@ __device__ __forceinline__ void wgmma_levels(int32_t* d, uint64_t da,
   if constexpr (NLEV == 3) wgmma_n192(d, da, db, scale_d);
 }
 
-// The stage schedule both roles walk: stages of kWK columns inside each
+template <int R>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x 64*P] (+)= A[64 x 16] * B[64*P x 16]^T, bf16 x bf16 -> f32, both
+// operands K-major in shared memory (scale 1, no transpose); scale_d == 0
+// starts a new sum.
+__device__ __forceinline__ void wgmma_bf16_n64(float* d, uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n128(float* d, uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int P>
+__device__ __forceinline__ void wgmma_levels(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  if constexpr (P == 1) wgmma_bf16_n64(d, da, db, scale_d);
+  if constexpr (P == 2) wgmma_bf16_n128(d, da, db, scale_d);
+}
+
+// The stage schedule both roles walk: stages of COLS columns inside each
 // reference seq chunk, the last one of a chunk possibly partial.
 template <int STAGES>
 struct Cursor {
@@ -464,9 +562,9 @@ struct Cursor {
   }
 };
 
-// Producer, preplaned entry, 4-byte staging (N_pad or seq_chunk not a
-// multiple of 16): A rows from the planes of tile ti, B rows from xq level l
-// of tile tj (unit weights: xq is the planes), one cp.async per word.
+// Producer, preplaned integer entry, 4-byte staging (N_pad or seq_chunk not
+// a multiple of 16): A rows from the planes of tile ti, B rows from xq level
+// l of tile tj (unit weights: xq is the planes), one cp.async per word.
 template <int NLEV>
 __device__ __forceinline__ void stage_planes(const Params& p, int ti, int tj,
                                              int bi, int bj, int k0,
@@ -498,9 +596,9 @@ __device__ __forceinline__ void stage_planes(const Params& p, int ti, int tj,
   }
 }
 
-// The preplaned producer's source rows of one work item under 16-byte
-// staging: thread pt copies chunk pt % 8 of the operand rows pt / 8 + 16 i
-// (the first kARowsPer in the planes, the rest in xq seen as
+// The preplaned integer producer's source rows of one work item under
+// 16-byte staging: thread pt copies chunk pt % 8 of the operand rows
+// pt / 8 + 16 i (the first kARowsPer in the planes, the rest in xq seen as
 // [nlev * 2 * s_pad] rows), whose stage offsets are swz(pt / 8, pt % 8) +
 // 2,048 i.
 template <int NLEV>
@@ -563,119 +661,224 @@ __device__ __forceinline__ uint4 and4(uint4 a, uint4 b) {
   return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
 }
 
-// The codes producer's sites of one work item: thread pt stages chunk
-// pt % 8 of the A sites pt / 8 + 16 i (i < kCodeSitesA) and of the B sites
-// pt / 8 + 16 (i - kCodeSitesA), so their row pointers (for the copies)
+// 0/1 bytes -> 0x00 / 0xff byte masks (no carries between bytes).
+__device__ __forceinline__ uint4 mask_of_ones(uint4 c) {
+  return make_uint4(c.x * 0xffu, c.y * 0xffu, c.z * 0xffu, c.w * 0xffu);
+}
+
+__device__ __forceinline__ uint4 splat4(uint32_t v) {
+  return make_uint4(v, v, v, v);
+}
+
+// Write the bf16 operand of one 16-column piece: the byte masks `m` of
+// columns 0..15 widened to halfword masks (byte b -> halfword b), ANDed
+// with the bf16 bits of columns 0..7 (`lo`) and 8..15 (`hi`), into 16-byte
+// chunks 2 ch and 2 ch + 1 of row `row`.
+__device__ __forceinline__ void put_bf16(uint8_t* base, int row, int ch,
+                                         uint4 m, uint4 lo, uint4 hi) {
+  const uint4 m0 = make_uint4(__byte_perm(m.x, 0, 0x1100),
+                              __byte_perm(m.x, 0, 0x3322),
+                              __byte_perm(m.y, 0, 0x1100),
+                              __byte_perm(m.y, 0, 0x3322));
+  const uint4 m1 = make_uint4(__byte_perm(m.z, 0, 0x1100),
+                              __byte_perm(m.z, 0, 0x3322),
+                              __byte_perm(m.w, 0, 0x1100),
+                              __byte_perm(m.w, 0, 0x3322));
+  *reinterpret_cast<uint4*>(base + swz(row, 2 * ch)) = and4(m0, lo);
+  *reinterpret_cast<uint4*>(base + swz(row, 2 * ch + 1)) = and4(m1, hi);
+}
+
+// Builder warpgroup R's share: sites [kFirst, kEnd) of G::kSites, its raw
+// rows and slots, and where they start in a raw buffer.
+template <class G, int R>
+struct Role {
+  static constexpr int kFirst = R == 0 ? 0 : G::kSitesA;
+  static constexpr int kEnd =
+      G::kBuilders == 2 && R == 0 ? G::kSitesA : G::kSites;
+  static constexpr int kRows = (kEnd - kFirst) * G::kSrc;
+  static constexpr bool kB = kEnd > G::kSitesA;  // builds B rows
+  static constexpr int kSlots = R == 0 ? G::kSlots0 : G::kSlots1;
+  static constexpr int kBase = R == 0 ? 0 : G::kSlots0 * kProducers * 16;
+};
+
+// The build producer's sites of one work item: thread pt of a builder
+// warpgroup stages piece pt % kPieces of the A sites pt / kPieces +
+// kRound i (i < kSitesA) and of the B sites pt / kPieces + kRound
+// (i - kSitesA) of its share, so their raw row pointers (for the copies)
 // and aux (for the build) stay in registers.
-__device__ __forceinline__ int64_t code_site(const Params& p, int64_t kt,
-                                            int bi, int bj, int pt, int i) {
-  const bool is_a = i < kCodeSitesA;
-  const int s = (pt >> 3) + 16 * (is_a ? i : i - kCodeSitesA);
-  const int loc = min((is_a ? bi * kWA : bj * kWB) + s, p.tile - 1);
-  return (int64_t)(is_a ? p.tile_i[kt] : p.tile_j[kt]) * p.tile + loc;
+template <class G>
+__device__ __forceinline__ void build_site(const Params& p, int64_t kt,
+                                           int bi, int bj, int pt, int i,
+                                           int& tile_idx, int& loc) {
+  const bool is_a = i < G::kSitesA;
+  const int s = pt / G::kPieces + G::kRound * (is_a ? i : i - G::kSitesA);
+  loc = min((is_a ? bi * kWA : bj * kWB) + s, p.tile - 1);
+  tile_idx = is_a ? p.tile_i[kt] : p.tile_j[kt];
 }
 
-struct CodeRows {
-  const int8_t* row[kCodeSites];
+template <class G, int R>
+struct RawRows {
+  const int8_t* row[Role<G, R>::kRows];
 };
 
-struct CodeAux {
-  uint32_t maj[kCodeSites];    // the site's major allele in every byte
-  uint32_t dmin[kCodeSites];   // its dominant minor allele
+template <class G, int R>
+struct SiteAux {
+  static constexpr int kN = Role<G, R>::kEnd - Role<G, R>::kFirst;
+  uint32_t maj[kN];    // the site's major allele in every byte
+  uint32_t dmin[kN];   // its dominant minor allele
 };
 
-__device__ __forceinline__ CodeRows code_rows(const Params& p, int64_t kt,
-                                              int bi, int bj, int pt) {
-  CodeRows cr;
+// Codes: one row per site; planes: the site's maj row, then its dmin row.
+template <class G, int R, bool PRE>
+__device__ __forceinline__ RawRows<G, R> raw_rows(const Params& p,
+                                                  int64_t kt, int bi, int bj,
+                                                  int pt) {
+  using RoleT = Role<G, R>;
+  RawRows<G, R> rr;
 #pragma unroll
-  for (int i = 0; i < kCodeSites; ++i)
-    cr.row[i] = p.codes + code_site(p, kt, bi, bj, pt, i) * p.n_pad;
-  return cr;
-}
-
-__device__ __forceinline__ CodeAux code_aux(const Params& p, int64_t kt,
-                                            int bi, int bj, int pt) {
-  CodeAux ca;
-#pragma unroll
-  for (int i = 0; i < kCodeSites; ++i) {
-    const int64_t site = code_site(p, kt, bi, bj, pt, i);
-    ca.maj[i] = (uint32_t)p.auxc[site * 3 + 0] * 0x01010101u;
-    ca.dmin[i] = (uint32_t)p.auxc[site * 3 + 1] * 0x01010101u;
-  }
-  return ca;
-}
-
-// Copy the raw chunks of one stage (columns [k0 + 16 (pt % 8), +16)) into
-// `raw` with cp.async, zero past the stage width; q through L1, where the
-// 16 threads of one chunk share it.
-template <int NLEV, bool VEC16>
-__device__ __forceinline__ void fetch_codes(const Params& p,
-                                            const CodeRows& cs, int k0,
-                                            int width, uint32_t raw, int pt) {
-  const int col = 16 * (pt & 7);
-#pragma unroll
-  for (int j = 0; j < kCodeSites + NLEV; ++j) {
-    const bool is_q = j >= kCodeSites;
-    const int8_t* row =
-        is_q ? p.q + (int64_t)(j - kCodeSites) * p.n_pad : cs.row[j];
-    const uint32_t dst = raw + (j * kProducers + pt) * 16;
-    if (VEC16) {
-      const int bytes = min(max(width - col, 0), 16);
-      const int8_t* src = row + (bytes > 0 ? k0 + col : 0);
-      if (is_q)
-        cp_async16_ca(dst, src, bytes);
-      else
-        cp_async16(dst, src, bytes);
+  for (int i = RoleT::kFirst; i < RoleT::kEnd; ++i) {
+    const int j = i - RoleT::kFirst;
+    int t, loc;
+    build_site<G>(p, kt, bi, bj, pt, i, t, loc);
+    if constexpr (PRE) {
+      const int64_t r = (int64_t)t * 2 * p.tile + loc;
+      rr.row[2 * j] = p.planes + r * p.n_pad;
+      rr.row[2 * j + 1] = p.planes + (r + p.tile) * p.n_pad;
     } else {
+      rr.row[j] = p.codes + ((int64_t)t * p.tile + loc) * p.n_pad;
+    }
+  }
+  return rr;
+}
+
+template <class G, int R>
+__device__ __forceinline__ SiteAux<G, R> site_aux(const Params& p,
+                                                  int64_t kt, int bi, int bj,
+                                                  int pt) {
+  using RoleT = Role<G, R>;
+  SiteAux<G, R> sa;
 #pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int bytes = col + 4 * w < width ? 4 : 0;
-        cp_async4(dst + 4 * w, row + (bytes > 0 ? k0 + col + 4 * w : 0),
-                  bytes);
-      }
+  for (int i = RoleT::kFirst; i < RoleT::kEnd; ++i) {
+    int t, loc;
+    build_site<G>(p, kt, bi, bj, pt, i, t, loc);
+    const int64_t site = (int64_t)t * p.tile + loc;
+    sa.maj[i - RoleT::kFirst] = (uint32_t)p.auxc[site * 3 + 0] * 0x01010101u;
+    sa.dmin[i - RoleT::kFirst] = (uint32_t)p.auxc[site * 3 + 1] * 0x01010101u;
+  }
+  return sa;
+}
+
+// Copy `bytes` (<= 16) from src to dst, as one 16-byte cp.async or as 4-byte
+// ones (zero-filled past `bytes`).
+template <bool VEC16, bool L1>
+__device__ __forceinline__ void fetch16(uint32_t dst, const int8_t* src,
+                                        int bytes) {
+  if (VEC16) {
+    if (L1)
+      cp_async16_ca(dst, src, bytes);
+    else
+      cp_async16(dst, src, bytes);
+  } else {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int b = 4 * w < bytes ? 4 : 0;
+      cp_async4(dst + 4 * w, src + (b > 0 ? 4 * w : 0), b);
     }
   }
 }
 
-// Build one stage from this thread's landed raw chunks: indicator bytes
-// from one __vcmpeq4 per code word against the site's major (dmin)
-// allele, zero past the stage width; A rows = indicator (0/1), B rows per
-// level = indicator & q_l (0xff bytes select q).
-template <int NLEV>
-__device__ __forceinline__ void build_codes(const CodeAux& cs, int width,
-                                            const uint8_t* raw, uint8_t* sa,
-                                            int pt) {
-  const int ch = pt & 7;
+// Copy the raw slots of one stage (columns [k0 + 16 (pt % kPieces), +16))
+// into `raw` (this builder's part of a raw buffer) with cp.async, zero past
+// the stage width: the source rows, then the weights (q_l rows; or two
+// 8-column halves of each bf16 pass row) through L1, where the threads of
+// one piece share them.
+template <class G, int R, bool VEC16>
+__device__ __forceinline__ void fetch_raw(const Params& p,
+                                          const RawRows<G, R>& rr, int k0,
+                                          int width, uint32_t raw, int pt) {
+  const int col = 16 * (pt % G::kPieces);
+  constexpr int kRows = Role<G, R>::kRows;
+#pragma unroll
+  for (int j = 0; j < Role<G, R>::kSlots; ++j) {
+    const uint32_t dst = raw + (j * kProducers + pt) * 16;
+    if (j < kRows) {
+      const int bytes = min(max(width - col, 0), 16);
+      fetch16<VEC16, false>(dst, rr.row[j] + (bytes > 0 ? k0 + col : 0),
+                            bytes);
+    } else if constexpr (G::kBf16) {
+      const int l = (j - kRows) >> 1;   // pass
+      const int c = col + 8 * ((j - kRows) & 1);
+      const int bytes = 2 * min(max(width - c, 0), 8);
+      const uint16_t* src = p.wb + (int64_t)l * p.n_pad + (bytes > 0 ? k0 + c : 0);
+      fetch16<VEC16, true>(dst, reinterpret_cast<const int8_t*>(src), bytes);
+    } else {
+      const int bytes = min(max(width - col, 0), 16);
+      const int8_t* src = p.q + (int64_t)(j - kRows) * p.n_pad;
+      fetch16<VEC16, true>(dst, src + (bytes > 0 ? k0 + col : 0), bytes);
+    }
+  }
+}
+
+// Build one stage from this thread's landed raw slots: per site the maj
+// and dmin byte masks (one __vcmpeq4 per code word against the site's
+// major / dmin allele, or the 0/1 plane bytes times 0xff), zero past the
+// stage width; int8 A rows = mask & 1 and B rows per level = mask & q_l;
+// bf16 A rows = bf16(1.0) where the mask is set, B rows per pass = the
+// pass's bf16 weight bits there.
+template <class G, int R, bool PRE>
+__device__ __forceinline__ void build_stage(const SiteAux<G, R>& ca,
+                                            int width, const uint8_t* raw,
+                                            uint8_t* sa, int pt) {
+  using RoleT = Role<G, R>;
+  constexpr int kRows = RoleT::kRows;
+  const int ch = pt % G::kPieces;
   const int col = 16 * ch;
   const uint4 valid = make_uint4(col < width ? ~0u : 0u,
                                  col + 4 < width ? ~0u : 0u,
                                  col + 8 < width ? ~0u : 0u,
                                  col + 12 < width ? ~0u : 0u);
-  const uint4 ones = make_uint4(0x01010101u, 0x01010101u, 0x01010101u,
-                                0x01010101u);
   const uint4* slot = reinterpret_cast<const uint4*>(raw) + pt;
-  uint4 q[NLEV];
+  uint4 w[RoleT::kB ? G::kWSlots : 1];
 #pragma unroll
-  for (int l = 0; l < NLEV; ++l) q[l] = slot[(kCodeSites + l) * kProducers];
+  for (int l = 0; l < (RoleT::kB ? G::kWSlots : 0); ++l)
+    w[l] = slot[(kRows + l) * kProducers];
+  const uint4 one = splat4(G::kBf16 ? 0x3F803F80u : 0x01010101u);
 #pragma unroll
-  for (int i = 0; i < kCodeSites; ++i) {
-    const uint4 code = slot[i * kProducers];
-    const uint4 em = and4(eq4(code, cs.maj[i]), valid);
-    const uint4 ed = and4(eq4(code, cs.dmin[i]), valid);
-    if (i < kCodeSitesA) {
-      // Warpgroup s / 32 owns A rows [64 * (s / 32), +64).
-      const int s = (pt >> 3) + 16 * i;
-      const int r = (s >> 5) * 64 + op_row(s & 31, 0);
-      *reinterpret_cast<uint4*>(sa + swz(r, ch)) = and4(em, ones);
-      *reinterpret_cast<uint4*>(sa + swz(r + 8, ch)) = and4(ed, ones);
+  for (int i = RoleT::kFirst; i < RoleT::kEnd; ++i) {
+    const int j = i - RoleT::kFirst;
+    uint4 em, ed;
+    if constexpr (PRE) {
+      em = and4(mask_of_ones(slot[(2 * j) * kProducers]), valid);
+      ed = and4(mask_of_ones(slot[(2 * j + 1) * kProducers]), valid);
     } else {
-      const int s = (pt >> 3) + 16 * (i - kCodeSitesA);
+      const uint4 code = slot[j * kProducers];
+      em = and4(eq4(code, ca.maj[j]), valid);
+      ed = and4(eq4(code, ca.dmin[j]), valid);
+    }
+    if (i < G::kSitesA) {
+      // Warpgroup s / 32 owns A rows [64 * (s / 32), +64).
+      const int s = pt / G::kPieces + G::kRound * i;
+      const int r = (s >> 5) * 64 + op_row(s & 31, 0);
+      if constexpr (G::kBf16) {
+        put_bf16(sa, r, ch, em, one, one);
+        put_bf16(sa, r + 8, ch, ed, one, one);
+      } else {
+        *reinterpret_cast<uint4*>(sa + swz(r, ch)) = and4(em, one);
+        *reinterpret_cast<uint4*>(sa + swz(r + 8, ch)) = and4(ed, one);
+      }
+    } else {
+      const int s = pt / G::kPieces + G::kRound * (i - G::kSitesA);
       uint8_t* sb = sa + kABytes;
 #pragma unroll
-      for (int l = 0; l < NLEV; ++l) {
+      for (int l = 0; l < G::kPasses; ++l) {
         const int r = l * 2 * kWB + op_row(s, 0);
-        *reinterpret_cast<uint4*>(sb + swz(r, ch)) = and4(em, q[l]);
-        *reinterpret_cast<uint4*>(sb + swz(r + 8, ch)) = and4(ed, q[l]);
+        if constexpr (G::kBf16) {
+          put_bf16(sb, r, ch, em, w[2 * l], w[2 * l + 1]);
+          put_bf16(sb, r + 8, ch, ed, w[2 * l], w[2 * l + 1]);
+        } else {
+          *reinterpret_cast<uint4*>(sb + swz(r, ch)) = and4(em, w[l]);
+          *reinterpret_cast<uint4*>(sb + swz(r + 8, ch)) = and4(ed, w[l]);
+        }
       }
     }
   }
@@ -694,8 +897,9 @@ __device__ __forceinline__ Item item_of(int item, int tile) {
 }
 
 // The stages of a CTA in order: the emitting work items blockIdx.x,
-// + gridDim.x, ...; in each, the reference seq chunks and their kWK-column
+// + gridDim.x, ...; in each, the reference seq chunks and their COLS-column
 // steps.
+template <int COLS>
 struct StageWalk {
   int item, c0, k0;
   int64_t kt;
@@ -714,11 +918,11 @@ struct StageWalk {
     }
   }
   __device__ int width(const Params& p) const {
-    return min(kWK, c0 + p.seq_chunk - k0);
+    return min(COLS, c0 + p.seq_chunk - k0);
   }
   // Step to the next stage; true when it starts another item.
   __device__ bool next(const Params& p, int n_items) {
-    k0 += kWK;
+    k0 += COLS;
     if (k0 < c0 + p.seq_chunk) return false;
     c0 += p.seq_chunk;
     k0 = c0;
@@ -729,16 +933,16 @@ struct StageWalk {
   }
 };
 
-// Producer warpgroup, preplaned entry: per stage, once the consumers have
-// released it, cp.async the operand rows; the full barrier completes when
-// they have landed.
+// Producer warpgroup, preplaned integer entry: per stage, once the
+// consumers have released it, cp.async the operand rows; the full barrier
+// completes when they have landed.
 template <int NLEV, bool VEC16>
 __device__ __forceinline__ void produce_planes(const Params& p, int n_items,
                                                uint32_t stages, uint32_t full,
                                                uint32_t empty, int pt) {
-  using RingT = Ring<NLEV, true>;
-  Cursor<RingT::kStages> cur;
-  StageWalk at;
+  using G = Geom<NLEV, 0, true>;
+  Cursor<G::kStages> cur;
+  StageWalk<G::kCols> at;
   at.item = blockIdx.x;
   at.settle(p, n_items);
   PlaneRows<NLEV> pr;
@@ -748,7 +952,7 @@ __device__ __forceinline__ void produce_planes(const Params& p, int n_items,
     const int tj = p.tile_j[at.kt];
     if (VEC16 && fresh) pr = plane_rows<NLEV>(p, ti, tj, at.bi, at.bj, pt);
     mbar_wait(empty + 8 * cur.stage, cur.phase ^ 1);
-    const uint32_t sa = stages + cur.stage * RingT::kStageBytes;
+    const uint32_t sa = stages + cur.stage * G::kStageBytes;
     if (VEC16)
       stage_plane_rows<NLEV>(p, pr, at.k0, at.width(p), sa, pt);
     else
@@ -759,49 +963,54 @@ __device__ __forceinline__ void produce_planes(const Params& p, int n_items,
   cp_async_wait<0>();
 }
 
-// Producer warpgroup, codes entry: the raw chunks of the next kRawDepth - 1
-// stages are in flight (cp.async into the raw buffers; walk `ahead`) while
-// this stage (walk `at`) is built.
-template <int NLEV, bool VEC16>
-__device__ __forceinline__ void produce_codes(const Params& p, int n_items,
+// Builder warpgroup R, every (entry, mode) but the preplaned integer one:
+// the raw slots of the next kRawDepth - 1 stages are in flight (cp.async
+// into the raw buffers; walk `ahead`) while this stage (walk `at`) is
+// built.  Each builder arrives on every stage's full barrier.
+template <int NLEV, int NFLT, bool PRE, bool VEC16, int R>
+__device__ __forceinline__ void produce_build(const Params& p, int n_items,
                                               uint8_t* gst, uint32_t raw,
                                               uint8_t* graw, uint32_t full,
                                               uint32_t empty, int pt) {
-  using RingT = Ring<NLEV, false>;
-  constexpr int kDepth = RingT::kRawDepth;
-  StageWalk at;
+  using G = Geom<NLEV, NFLT, PRE>;
+  constexpr int kDepth = G::kRawDepth;
+  constexpr int kBase = Role<G, R>::kBase;
+  StageWalk<G::kCols> at;
   at.item = blockIdx.x;
   at.settle(p, n_items);
   if (at.item >= n_items) return;
-  StageWalk ahead = at;
-  CodeRows rows = code_rows(p, ahead.kt, ahead.bi, ahead.bj, pt);
-  CodeAux aux = code_aux(p, at.kt, at.bi, at.bj, pt);
+  StageWalk<G::kCols> ahead = at;
+  RawRows<G, R> rows =
+      raw_rows<G, R, PRE>(p, ahead.kt, ahead.bi, ahead.bj, pt);
+  SiteAux<G, R> aux;
+  if (!PRE) aux = site_aux<G, R>(p, at.kt, at.bi, at.bj, pt);
   // Fetch into buffer `slot` and step `ahead` on.
   auto fetch = [&](int slot) {
     if (ahead.item < n_items) {
-      fetch_codes<NLEV, VEC16>(p, rows, ahead.k0, ahead.width(p),
-                               raw + slot * RingT::kRawBytes, pt);
+      fetch_raw<G, R, VEC16>(p, rows, ahead.k0, ahead.width(p),
+                             raw + slot * G::kRawBytes + kBase, pt);
       if (ahead.next(p, n_items) && ahead.item < n_items)
-        rows = code_rows(p, ahead.kt, ahead.bi, ahead.bj, pt);
+        rows = raw_rows<G, R, PRE>(p, ahead.kt, ahead.bi, ahead.bj, pt);
     }
     cp_async_commit();  // one group per stage, empty past the end
   };
 #pragma unroll
   for (int i = 0; i < kDepth - 1; ++i) fetch(i);
-  Cursor<RingT::kStages> cur;
+  Cursor<G::kStages> cur;
   int slot = 0;  // this stage's raw buffer
   while (at.item < n_items) {
     fetch(slot == 0 ? kDepth - 1 : slot - 1);
-    cp_async_wait<kDepth - 1>();  // this stage's raw chunks have landed
+    cp_async_wait<kDepth - 1>();  // this stage's raw slots have landed
     mbar_wait(empty + 8 * cur.stage, cur.phase ^ 1);
-    build_codes<NLEV>(aux, at.width(p), graw + slot * RingT::kRawBytes,
-                      gst + cur.stage * RingT::kStageBytes, pt);
+    build_stage<G, R, PRE>(aux, at.width(p),
+                           graw + slot * G::kRawBytes + kBase,
+                           gst + cur.stage * G::kStageBytes, pt);
     fence_proxy_async();  // generic-proxy writes -> wgmma reads
     mbar_arrive(full + 8 * cur.stage);
     cur.next();
     slot = slot == kDepth - 1 ? 0 : slot + 1;
-    if (at.next(p, n_items) && at.item < n_items)
-      aux = code_aux(p, at.kt, at.bi, at.bj, pt);
+    if (at.next(p, n_items) && at.item < n_items && !PRE)
+      aux = site_aux<G, R>(p, at.kt, at.bi, at.bj, pt);
   }
 }
 
@@ -810,13 +1019,14 @@ __device__ __forceinline__ void produce_codes(const Params& p, int n_items,
 // first stages while the consumers finish the last one, and the epilogue
 // warpgroup runs an item's pair algebra and stores while the consumers
 // contract the next.
-template <int NLEV, bool PRE, bool VEC16>
-__global__ void __launch_bounds__(kConsumers + kProducers + kFinishers, 1)
+template <int NLEV, int NFLT, bool PRE, bool VEC16>
+__global__ void __launch_bounds__(Geom<NLEV, NFLT, PRE>::kThreads, 1)
 ld_majmin_wgmma(const Params p, int n_items) {
-  using RingT = Ring<NLEV, PRE>;
-  constexpr int kStages = RingT::kStages;
-  constexpr int kStageBytes = RingT::kStageBytes;
-  constexpr int R = 32 * NLEV;        // accumulator registers per thread
+  using G = Geom<NLEV, NFLT, PRE>;
+  constexpr int kStages = G::kStages;
+  constexpr int kStageBytes = G::kStageBytes;
+  constexpr int R = 32 * G::kPasses;  // accumulator registers per thread
+  using Acc = typename std::conditional<G::kBf16, float, int32_t>::type;
   extern __shared__ uint8_t smem_raw[];
 
   const int tile = p.tile;
@@ -825,15 +1035,15 @@ ld_majmin_wgmma(const Params p, int n_items) {
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - raw);
   const uint32_t rawbuf = base + kStages * kStageBytes;
-  const uint32_t cells = rawbuf + RingT::kRawDepth * RingT::kRawBytes;
+  const uint32_t cells = rawbuf + G::kRawDepth * G::kRawBytes;
   float4* const gcells = reinterpret_cast<float4*>(gbase + (cells - base));
-  const uint32_t full = cells + RingT::kCellBytes;
+  const uint32_t full = cells + G::kCellBytes;
   const uint32_t empty = full + 8 * (kStages + 1);
   // full[kStages] / empty[kStages]: the cells, filled by the consumers and
   // released by the epilogue warpgroup.
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(full + 8 * s, kProducers);
+      mbar_init(full + 8 * s, G::kProducerThreads);
       mbar_init(empty + 8 * s, kConsumers);
     }
     mbar_init(full + 8 * kStages, kConsumers);
@@ -842,17 +1052,17 @@ ld_majmin_wgmma(const Params p, int n_items) {
   }
   __syncthreads();
 
-  if (tid >= kConsumers + kProducers) {
+  if (tid >= kConsumers + G::kProducerThreads) {
     // Epilogue warpgroup: per item the pair algebra and the stores of the
     // item's pairs (A site ea + 4m, m < kPer; B site eb: consecutive
     // threads on consecutive B sites); the keep blocks of padding tile
     // pairs are zeroed.  The sites' aux is read while the consumers
     // contract, before the cells are waited for.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
-                     kFinisherRegs));
+                     G::kOtherRegs));
     constexpr int kPer = kPairs / kFinishers;
     constexpr int kStep = kFinishers / kWB;
-    const int et = tid - kConsumers - kProducers;
+    const int et = tid - kConsumers - G::kProducerThreads;
     const int ea = et / kWB;
     const int eb = et % kWB;
     uint32_t phase = 0;
@@ -894,25 +1104,30 @@ ld_majmin_wgmma(const Params p, int n_items) {
     }
   } else if (tid >= kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
-                     kProducerRegs));
+                     G::kOtherRegs));
     const int pt = tid - kConsumers;
-    if (PRE)
+    uint8_t* const graw = gbase + (rawbuf - base);
+    if constexpr (!G::kBuild)
       produce_planes<NLEV, VEC16>(p, n_items, base, full, empty, pt);
-    else
-      produce_codes<NLEV, VEC16>(p, n_items, gbase, rawbuf,
-                                 gbase + (rawbuf - base), full, empty, pt);
+    else if (G::kBuilders == 1 || pt < kProducers)
+      produce_build<NLEV, NFLT, PRE, VEC16, 0>(p, n_items, gbase, rawbuf,
+                                               graw, full, empty, pt);
+    else if constexpr (G::kBuilders == 2)
+      produce_build<NLEV, NFLT, PRE, VEC16, 1>(p, n_items, gbase, rawbuf,
+                                               graw, full, empty,
+                                               pt - kProducers);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
-                     kConsumerRegs));
+                     G::kConsumerRegs));
     // Consumer thread -> its 8 pairs of an item: A site li, B sites
     // lj0 + 8h + c.
     const int wg = tid >> 7;
     const int warp = (tid >> 5) & 3;
     const int lane = tid & 31;
-    float a[NLEV];
+    float a[NLEV > 0 ? NLEV : 1];
 #pragma unroll
     for (int l = 0; l < NLEV; ++l) a[l] = p.scale[l];
-    int32_t D[R];
+    Acc D[R];
     // The f32 running cells of this thread's pairs live in the epilogue's
     // buffer (pair (A site a, B site b) of the item at a * kWB + b), which
     // keeps the consumers' registers for the accumulators.
@@ -929,21 +1144,22 @@ ld_majmin_wgmma(const Params p, int n_items) {
         // chunk, which frees its registers for the epilogue.
 #pragma unroll
         for (int i = 0; i < R; ++i) D[i] = 0;
-        for (int k0 = c0; k0 < c0 + p.seq_chunk; k0 += kWK) {
+        for (int k0 = c0; k0 < c0 + p.seq_chunk; k0 += G::kCols) {
           mbar_wait(full + 8 * cur.stage, cur.phase);
           fence_proxy_async();
           const uint32_t sa = base + cur.stage * kStageBytes;
-          const uint64_t da = sw128_desc(sa + wg * 64 * kWK);
+          const uint64_t da = sw128_desc(sa + wg * 64 * kRowBytes);
           const uint64_t db = sw128_desc(sa + kABytes);
           fence_regs<R>(D);
           wgmma_fence();
-          // All four 32-column steps: columns past a partial stage's
-          // width are zero in both operands.  Each step moves the
-          // descriptors 32 bytes further into the 128-byte rows.
-          wgmma_levels<NLEV>(D, da, db, scale_d);
-          wgmma_levels<NLEV>(D, da + 2, db + 2, 1);
-          wgmma_levels<NLEV>(D, da + 4, db + 4, 1);
-          wgmma_levels<NLEV>(D, da + 6, db + 6, 1);
+          // All four K steps of a stage (32 bytes each: 32 int8 or 16
+          // bf16 columns): columns past a partial stage's width are zero in
+          // both operands.  Each step moves the descriptors 32 bytes
+          // further into the 128-byte rows.
+          wgmma_levels<G::kPasses>(D, da, db, scale_d);
+          wgmma_levels<G::kPasses>(D, da + 2, db + 2, 1);
+          wgmma_levels<G::kPasses>(D, da + 4, db + 4, 1);
+          wgmma_levels<G::kPasses>(D, da + 6, db + 6, 1);
           wgmma_commit();
           scale_d = 1;
           fence_regs<R>(D);
@@ -962,9 +1178,9 @@ ld_majmin_wgmma(const Params p, int n_items) {
           cell_phase ^= 1;
         }
 
-        // Combine once per seq chunk (pallas_ld.py:912-920): fragment
+        // Combine once per seq chunk (pallas_ld.py:912-935): fragment
         // entry 4k + 2*ia + c holds row-half ia (A maj / dmin) and column c
-        // of n8 block k = 8l + 2h + ib (level l, B group h, B maj / dmin).
+        // of n8 block k = 8l + 2h + ib (pass l, B group h, B maj / dmin).
 #pragma unroll
         for (int h = 0; h < 4; ++h)
 #pragma unroll
@@ -973,11 +1189,19 @@ ld_majmin_wgmma(const Params p, int n_items) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int ia = e >> 1, ib = e & 1;
-              cell[e] = a[0] * (float)D[4 * (2 * h + ib) + 2 * ia + c];
+              const int i0 = 4 * (2 * h + ib) + 2 * ia + c;
+              if constexpr (G::kBf16) {
+                cell[e] = (float)D[i0];
+                if constexpr (NFLT == 2)        // split_bf16: F_hi + F_lo
+                  cell[e] = cell[e] + (float)D[32 + i0];
+                if constexpr (NLEV == 1)        // lo_int8: F + alpha * J
+                  cell[e] = cell[e] + a[0] * (float)D[32 + i0];
+              } else {
+                cell[e] = a[0] * (float)D[i0];
 #pragma unroll
-              for (int l = 1; l < NLEV; ++l)
-                cell[e] = cell[e] + a[l] * (float)D[4 * (8 * l + 2 * h + ib) +
-                                                     2 * ia + c];
+                for (int l = 1; l < NLEV; ++l)
+                  cell[e] = cell[e] + a[l] * (float)D[32 * l + i0];
+              }
             }
             float4 v = make_float4(cell[0], cell[1], cell[2], cell[3]);
             if (c0 > 0) {
@@ -1005,311 +1229,49 @@ int sm_count() {
   return count;
 }
 
-template <int NLEV, bool PRE, bool VEC16>
+template <int NLEV, int NFLT, bool PRE, bool VEC16>
 int launch_wgmma(const Params& p, int k, cudaStream_t stream) {
-  constexpr int smem = Ring<NLEV, PRE>::kSmem;
-  auto kern = ld_majmin_wgmma<NLEV, PRE, VEC16>;
+  constexpr int smem = Geom<NLEV, NFLT, PRE>::kSmem;
+  constexpr int threads = Geom<NLEV, NFLT, PRE>::kThreads;
+  auto kern = ld_majmin_wgmma<NLEV, NFLT, PRE, VEC16>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int64_t items = (int64_t)k * ((p.tile + kWA - 1) / kWA) *
                         ((p.tile + kWB - 1) / kWB);
   const int grid = (int)(items < sm_count() ? items : sm_count());
-  kern<<<grid, kConsumers + kProducers + kFinishers, smem, stream>>>(
-      p, (int)items);
+  kern<<<grid, threads, smem, stream>>>(p, (int)items);
   return (int)cudaGetLastError();
 }
 
-template <int NLEV, bool PRE>
-int launch_int(const Params& p, int k, cudaStream_t stream) {
+template <int NLEV, int NFLT, bool PRE>
+int launch(const Params& p, int k, cudaStream_t stream) {
   // 16-byte staging needs every stage start 16-byte aligned.
   if (p.n_pad % 16 == 0 && p.seq_chunk % 16 == 0)
-    return launch_wgmma<NLEV, PRE, true>(p, k, stream);
-  return launch_wgmma<NLEV, PRE, false>(p, k, stream);
+    return launch_wgmma<NLEV, NFLT, PRE, true>(p, k, stream);
+  return launch_wgmma<NLEV, NFLT, PRE, false>(p, k, stream);
 }
 
-// ---------------------------------------------------------------------------
-// 2. The float weight modes on CUDA cores.
-// ---------------------------------------------------------------------------
-
-constexpr int kBM = 32;            // A-side sites per CTA
-constexpr int kBN = 32;            // B-side sites per CTA
-constexpr int kThreads = 256;      // 16 x 16 threads, 2 x 2 pairs each
-constexpr int kKS = 64;            // sequence columns staged per step
-constexpr int kKW = kKS / 4;       // packed 32-bit words per staged row
-constexpr int kKWP = kKW + 1;      // padded row stride: no bank conflicts
-
-// 4-bit mask of a word of four 0/1 bytes (byte b -> bit b): the multiply
-// moves each byte's bit to bits 24..27 and leaves its cross terms below.
-__device__ __forceinline__ uint32_t mask4(uint32_t x) {
-  return (x * 0x01020408u) >> 24;
-}
-
-// NFLT f32 passes over the indicators sI (weights staged separately as
-// tables); under LO (lo_int8, NLEV = 1) also one int8 pass over sA =
-// indicator * q.  PRE selects the operand source: false = codes + aux (the
-// _ld_kernel_mm build), true = precomputed planes (the _ld_kernel_mm_pre
-// inputs; under LO the planes and the q row, with planes * q built while
-// staging, as JAX builds xq in-kernel for this mode: the same int8 bytes
-// without a second [2*s_pad, n_pad] array in device memory).
-template <int NLEV, int NFLT, bool PRE>
-__global__ void __launch_bounds__(kThreads)
-ld_majmin_dp4a(const Params p) {
-  static_assert(NFLT > 0 && NLEV <= 1, "the integer modes run on wgmma");
-  constexpr bool LO = NLEV > 0;
-  __shared__ uint32_t sI[2][kBM][kKWP];
-  __shared__ uint32_t sA[LO ? 2 : 1][kBM][kKWP];
-  __shared__ uint32_t sB[2][kBN][kKWP];
-  // Per staged word and 4-bit byte mask, the f32 sum of the selected
-  // weights of its four columns, added in column order.
-  __shared__ float sT[NFLT][kKW][16];
-  __shared__ int32_t sAuxA[kBM][2];
-  __shared__ int32_t sAuxB[kBN][2];
-
-  const int bps = (p.tile + kBM - 1) / kBM;
-  const int64_t kt = blockIdx.x / (bps * bps);
-  const int rem = blockIdx.x % (bps * bps);
-  const int bi = rem / bps;
-  const int bj = rem % bps;
-  const int ti = p.tile_i[kt];
-  const int tj = p.tile_j[kt];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int tile = p.tile;
-
-  int li[2], lj[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) li[r] = bi * kBM + ty + 16 * r;
-#pragma unroll
-  for (int c = 0; c < 2; ++c) lj[c] = bj * kBN + tx + 16 * c;
-
-  if (p.emit[kt] == 0) {
-    // Padding tile pair: only its keep block is zeroed.
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-        if (li[r] < tile && lj[c] < tile)
-          p.keep[(kt * tile + li[r]) * tile + lj[c]] = 0;
-    return;
-  }
-
-  if (!PRE) {
-    if (tid < kBM) {
-      const int loc = bi * kBM + tid;
-      const int64_t site = (int64_t)ti * tile + loc;
-      sAuxA[tid][0] = loc < tile ? p.auxc[site * 3 + 0] : -1;
-      sAuxA[tid][1] = loc < tile ? p.auxc[site * 3 + 1] : -1;
-    } else if (tid < kBM + kBN) {
-      const int loc = bj * kBN + (tid - kBM);
-      const int64_t site = (int64_t)tj * tile + loc;
-      sAuxB[tid - kBM][0] = loc < tile ? p.auxc[site * 3 + 0] : -1;
-      sAuxB[tid - kBM][1] = loc < tile ? p.auxc[site * 3 + 1] : -1;
-    }
-  }
-
-  int32_t J[2][2][4];
-  float F[NFLT][2][2][4];
-  float acc[2][2][4];
-
-  for (int c0 = 0; c0 < p.n_pad; c0 += p.seq_chunk) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          J[r][c][e] = 0;
-#pragma unroll
-          for (int f = 0; f < NFLT; ++f) F[f][r][c][e] = 0.0f;
-        }
-
-    for (int k0 = c0; k0 < c0 + p.seq_chunk; k0 += kKS) {
-      const int width = min(kKS, c0 + p.seq_chunk - k0);
-      __syncthreads();  // the previous step's operands are consumed
-      // Stage the A and B rows of this step: kBM * kKW words per side,
-      // zero beyond the tile edge and past the chunk end.
-      for (int s = tid; s < kBM * kKW; s += kThreads) {
-        const int row = s / kKW;
-        const int w = s % kKW;
-        const int64_t col = k0 + 4 * w;
-        const bool in_col = 4 * w < width;
-        const int la = bi * kBM + row;
-        const int lb = bj * kBN + row;
-        const bool va = in_col && la < tile;
-        const bool vb = in_col && lb < tile;
-        if (PRE) {
-          const int64_t ra = (int64_t)ti * 2 * tile + la;
-          const int64_t rb = (int64_t)tj * 2 * tile + lb;
-          const uint32_t pm = va ? ld_word(p.planes, ra * p.n_pad + col) : 0u;
-          const uint32_t pd =
-              va ? ld_word(p.planes, (ra + tile) * p.n_pad + col) : 0u;
-          if constexpr (LO) {
-            // 0/1 plane bytes times 0xff are byte masks (no carries).
-            const uint32_t qw = va ? ld_word(p.xq, col) : 0u;
-            sA[0][row][w] = (pm * 0xffu) & qw;
-            sA[1][row][w] = (pd * 0xffu) & qw;
-          }
-          sI[0][row][w] = pm;
-          sI[1][row][w] = pd;
-          sB[0][row][w] = vb ? ld_word(p.planes, rb * p.n_pad + col) : 0u;
-          sB[1][row][w] =
-              vb ? ld_word(p.planes, (rb + tile) * p.n_pad + col) : 0u;
-        } else {
-          // Indicator bytes from one compare per byte: __vcmpeq4 gives 0xff
-          // where the code equals the site's major (dmin) allele.
-          uint32_t ema = 0u, eda = 0u, emb = 0u, edb = 0u;
-          if (va) {
-            const uint32_t code =
-                ld_word(p.codes, ((int64_t)ti * tile + la) * p.n_pad + col);
-            ema = __vcmpeq4(code, (uint32_t)sAuxA[row][0] * 0x01010101u);
-            eda = __vcmpeq4(code, (uint32_t)sAuxA[row][1] * 0x01010101u);
-          }
-          if (vb) {
-            const uint32_t code =
-                ld_word(p.codes, ((int64_t)tj * tile + lb) * p.n_pad + col);
-            emb = __vcmpeq4(code, (uint32_t)sAuxB[row][0] * 0x01010101u);
-            edb = __vcmpeq4(code, (uint32_t)sAuxB[row][1] * 0x01010101u);
-          }
-          if constexpr (LO) {
-            const uint32_t qw = va ? ld_word(p.q, col) : 0u;
-            sA[0][row][w] = ema & qw;  // one-hot * q fits int8
-            sA[1][row][w] = eda & qw;
-          }
-          sI[0][row][w] = ema & 0x01010101u;
-          sI[1][row][w] = eda & 0x01010101u;
-          sB[0][row][w] = emb & 0x01010101u;
-          sB[1][row][w] = edb & 0x01010101u;
-        }
-      }
-      for (int s = tid; s < NFLT * kKW * 16; s += kThreads) {
-        const int f = s / (kKW * 16);
-        const int w = (s / 16) % kKW;
-        const int m = s % 16;
-        float t = 0.0f;
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          if (((m >> b) & 1) && 4 * w + b < width)
-            t = t + p.wf[(int64_t)f * p.n_pad + k0 + 4 * w + b];
-        sT[f][w][m] = t;
-      }
-      __syncthreads();
-
-      if constexpr (LO) {
-#pragma unroll 4
-        for (int w = 0; w < kKW; ++w) {
-          int bm[2], bd[2];
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            bm[c] = (int)sB[0][tx + 16 * c][w];
-            bd[c] = (int)sB[1][tx + 16 * c][w];
-          }
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int am = (int)sA[0][ty + 16 * r][w];
-            const int ad = (int)sA[1][ty + 16 * r][w];
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              J[r][c][0] = __dp4a(am, bm[c], J[r][c][0]);
-              J[r][c][1] = __dp4a(am, bd[c], J[r][c][1]);
-              J[r][c][2] = __dp4a(ad, bm[c], J[r][c][2]);
-              J[r][c][3] = __dp4a(ad, bd[c], J[r][c][3]);
-            }
-          }
-        }
-      }
-      for (int w = 0; w < kKW; ++w) {
-        uint32_t am[2], ad[2], bm[2], bd[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          am[r] = sI[0][ty + 16 * r][w];
-          ad[r] = sI[1][ty + 16 * r][w];
-        }
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          bm[c] = sB[0][tx + 16 * c][w];
-          bd[c] = sB[1][tx + 16 * c][w];
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const uint32_t m0 = mask4(am[r] & bm[c]);
-            const uint32_t m1 = mask4(am[r] & bd[c]);
-            const uint32_t m2 = mask4(ad[r] & bm[c]);
-            const uint32_t m3 = mask4(ad[r] & bd[c]);
-#pragma unroll
-            for (int f = 0; f < NFLT; ++f) {
-              F[f][r][c][0] += sT[f][w][m0];
-              F[f][r][c][1] += sT[f][w][m1];
-              F[f][r][c][2] += sT[f][w][m2];
-              F[f][r][c][3] += sT[f][w][m3];
-            }
-          }
-      }
-    }
-
-    // Combine once per seq chunk (pallas_ld.py:926-930, 937-940).
-    const float a0 = LO ? p.scale[0] : 0.0f;
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float cells;
-          if (LO) {
-            cells = F[0][r][c][e] + a0 * (float)J[r][c][e];
-          } else {
-            cells = F[0][r][c][e];
-#pragma unroll
-            for (int f = 1; f < NFLT; ++f) cells = cells + F[f][r][c][e];
-          }
-          acc[r][c][e] = c0 == 0 ? cells : acc[r][c][e] + cells;
-        }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-      if (li[r] < tile && lj[c] < tile)
-        store_pair(p, kt, ti, tj, li[r], lj[c],
-                   polymorphic(p, (int64_t)ti * tile + li[r]) &&
-                       polymorphic(p, (int64_t)tj * tile + lj[c]),
-                   acc[r][c]);
-}
-
-template <int NLEV, int NFLT, bool PRE>
-int launch_dp4a(const Params& p, int k, cudaStream_t stream) {
-  const int bps = (p.tile + kBM - 1) / kBM;
-  const int64_t blocks = (int64_t)k * bps * bps;
-  ld_majmin_dp4a<NLEV, NFLT, PRE><<<(unsigned)blocks, kThreads, 0, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// The body by weight mode: the integer modes (nflt == 0) on wgmma, the
-// float modes on CUDA cores.
+// The instantiation by weight mode; any other (nlev, nflt) is refused.
 template <bool PRE>
 int dispatch(const Params& p, int k, int nlev, int nflt, cudaStream_t stream) {
   if (k <= 0) return 0;
-  if (nflt == 0 && nlev == 1) return launch_int<1, PRE>(p, k, stream);
-  if (nflt == 0 && nlev == 2) return launch_int<2, PRE>(p, k, stream);
-  if (nflt == 0 && nlev == 3) return launch_int<3, PRE>(p, k, stream);
-  if (nlev == 0 && nflt == 1) return launch_dp4a<0, 1, PRE>(p, k, stream);
-  if (nlev == 0 && nflt == 2) return launch_dp4a<0, 2, PRE>(p, k, stream);
-  if (nlev == 1 && nflt == 1) return launch_dp4a<1, 1, PRE>(p, k, stream);
+  if (nflt == 0 && nlev == 1) return launch<1, 0, PRE>(p, k, stream);
+  if (nflt == 0 && nlev == 2) return launch<2, 0, PRE>(p, k, stream);
+  if (nflt == 0 && nlev == 3) return launch<3, 0, PRE>(p, k, stream);
+  if (nflt == 1 && nlev == 0) return launch<0, 1, PRE>(p, k, stream);
+  if (nflt == 2 && nlev == 0) return launch<0, 2, PRE>(p, k, stream);
+  if (nflt == 1 && nlev == 1) return launch<1, 1, PRE>(p, k, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-Params make_params(const void* scale, const void* wf, const void* auxc,
+Params make_params(const void* scale, const void* wb, const void* auxc,
                    const void* tile_i, const void* tile_j, const void* emit,
                    void* d, void* dp, void* r2, void* keep, int tile,
                    int n_sites, int s_pad, int n_pad, int seq_chunk) {
   Params p = {};
   p.scale = static_cast<const float*>(scale);
-  p.wf = static_cast<const float*>(wf);
+  p.wb = static_cast<const uint16_t*>(wb);
   p.auxc = static_cast<const int32_t*>(auxc);
   p.tile_i = static_cast<const int32_t*>(tile_i);
   p.tile_j = static_cast<const int32_t*>(tile_j);
@@ -1329,15 +1291,16 @@ Params make_params(const void* scale, const void* wf, const void* auxc,
 }  // namespace
 
 // Entry for _ld_kernel_mm: operands built from the codes and the aux.
-// Returns the CUDA error of the launch (0 = launched).
+// `wb` is the [nlev + nflt, n_pad] bf16 bits of the float passes (null in
+// the integer modes).  Returns the CUDA error of the launch (0 = launched).
 extern "C" int ld_majmin_codes(const void* codes, const void* q,
-                               const void* scale, const void* wf,
+                               const void* scale, const void* wb,
                                const void* auxc, const void* tile_i,
                                const void* tile_j, const void* emit, void* d,
                                void* dp, void* r2, void* keep, int k, int tile,
                                int n_sites, int s_pad, int n_pad, int seq_chunk,
                                int nlev, int nflt, void* stream) {
-  Params p = make_params(scale, wf, auxc, tile_i, tile_j, emit, d, dp, r2,
+  Params p = make_params(scale, wb, auxc, tile_i, tile_j, emit, d, dp, r2,
                          keep, tile, n_sites, s_pad, n_pad, seq_chunk);
   p.codes = static_cast<const int8_t*>(codes);
   p.q = static_cast<const int8_t*>(q);
@@ -1345,17 +1308,16 @@ extern "C" int ld_majmin_codes(const void* codes, const void* q,
 }
 
 // Entry for _ld_kernel_mm_pre: operands read from precomputed planes / xq
-// (unit weights: xq is the planes; lo_int8, nlev = nflt = 1: xq is the
-// [n_pad] int8 q row).
+// (unit weights: xq is the planes; the float modes read the planes alone).
 extern "C" int ld_majmin_planes(const void* planes, const void* xq,
-                                const void* scale, const void* wf,
+                                const void* scale, const void* wb,
                                 const void* auxc, const void* tile_i,
                                 const void* tile_j, const void* emit, void* d,
                                 void* dp, void* r2, void* keep, int k,
                                 int tile, int n_sites, int s_pad, int n_pad,
                                 int seq_chunk, int nlev, int nflt,
                                 void* stream) {
-  Params p = make_params(scale, wf, auxc, tile_i, tile_j, emit, d, dp, r2,
+  Params p = make_params(scale, wb, auxc, tile_i, tile_j, emit, d, dp, r2,
                          keep, tile, n_sites, s_pad, n_pad, seq_chunk);
   p.planes = static_cast<const int8_t*>(planes);
   p.xq = static_cast<const int8_t*>(xq);

@@ -14,7 +14,7 @@ Both launch the hand-written kernel of ``csrc/ld_majmin.cu`` for CUDA
 tensors and run :func:`tile_stats_majmin_plain` /
 :func:`tile_stats_majmin_pre_plain` for CPU tensors (the CPU tests and the
 ``--device cpu`` CLI); any other device raises.  Each launch adds one to
-``launches[<kernel name>]``.
+``launches[launch_name(<entry>, <weight kind>)]``.
 
 Precondition (as in JAX): no UNKNOWN code anywhere, or every site's count
 margins absorb the worst-case per-pair UNKNOWN removals
@@ -40,10 +40,22 @@ from ..core.paircore import PairStats
 DEFAULT_SEQ_CHUNK = 512
 ALL_PLANES = (0, 1, 2, 3, 4)
 
-# Launch counts per kernel entry point, the lo_int8 variants under their own
-# names: each wrapper adds one where it launches its kernel and nowhere else.
-launches = {"ld_majmin_codes": 0, "ld_majmin_planes": 0,
-            "ld_majmin_codes_lo_int8": 0, "ld_majmin_planes_lo_int8": 0}
+# Launch counts per kernel entry point, the float weight modes under names of
+# their own: each wrapper adds one where it launches its kernel and nowhere
+# else.
+_MODE_SUFFIX = {"lo": "_lo_int8", "split": "_split_bf16",
+                "exact": "_bf16_exact"}
+launches = {entry + suffix: 0
+            for entry in ("ld_majmin_codes", "ld_majmin_planes")
+            for suffix in ("", *_MODE_SUFFIX.values())}
+
+
+def launch_name(entry: str, kind: str) -> str:
+    """The ``launches`` key of entry point ``entry`` in weight kind ``kind``
+    (``_weight_mode``): the integer kinds count under the entry's name, the
+    float kinds under ``<entry>_lo_int8``, ``_split_bf16`` or
+    ``_bf16_exact``."""
+    return entry + _MODE_SUFFIX.get(kind, "")
 
 
 def reset_launches() -> None:
@@ -311,25 +323,31 @@ def pair_algebra(n_mm, n_md, n_dm, n_dd, keep):
     return d, d_prime, r2, keep
 
 
+def weight_kind(exact_weights: bool, unit_weights: bool, wquant: str) -> str:
+    """The weight kind of the kernels' passes, with JAX's precedence: unit,
+    then bf16-exact, then the int8 cascades (``"int"``), lo_int8 (``"lo"``)
+    and split_bf16 (``"split"``, ``wquant=""``)."""
+    if unit_weights:
+        return "unit"
+    if exact_weights:
+        return "exact"
+    kinds = {"int8": "int", "int8x3": "int", "": "split", "lo_int8": "lo"}
+    if wquant not in kinds:
+        raise ValueError(f"unknown wquant {wquant!r}")
+    return kinds[wquant]
+
+
 def _weight_mode(weights: torch.Tensor, exact_weights: bool,
                  unit_weights: bool, wquant: str) -> tuple[str, int]:
-    """``(kind, nlev)`` of the weight passes, with JAX's precedence: unit,
-    then bf16-exact, then the int8 cascades, lo_int8 and split_bf16.
+    """``(kind, nlev)`` of the weight passes (:func:`weight_kind`).
     ``"lo"`` (lo_int8) has one float pass of ``bf16(w)`` and one int8 level
     of the quantized residual (scale ``weights[2, 0]``)."""
-    if unit_weights:
-        kind, nlev, rows = "unit", 1, 1
-    elif exact_weights:
-        kind, nlev, rows = "exact", 0, 1
-    elif wquant in ("int8", "int8x3"):
+    kind = weight_kind(exact_weights, unit_weights, wquant)
+    nlev, rows = {"unit": (1, 1), "exact": (0, 1), "split": (0, 1),
+                  "lo": (1, 3)}.get(kind, (0, 0))
+    if kind == "int":
         nlev = 2 if wquant == "int8" else 3
-        kind, rows = "int", 2 * nlev
-    elif wquant == "":
-        kind, nlev, rows = "split", 0, 1
-    elif wquant == "lo_int8":
-        kind, nlev, rows = "lo", 1, 3
-    else:
-        raise ValueError(f"unknown wquant {wquant!r}")
+        rows = 2 * nlev
     if weights.dim() != 2 or weights.shape[0] != rows:
         raise ValueError(
             f"weights layout {tuple(weights.shape)} does not match the "
@@ -349,6 +367,19 @@ def _float_rows(weights: torch.Tensor, kind: str) -> list[torch.Tensor]:
         return [w_hi]
     w_lo = (w - w_hi).to(torch.bfloat16).to(torch.float32)
     return [w_hi, w_lo]
+
+
+def float_pass_bits(weights: torch.Tensor, kind: str) -> torch.Tensor:
+    """``[passes, N_pad]`` int16: the bf16 bits of each float pass the
+    kernel multiplies into its B operand (the indicator's set halfwords
+    take these bits, as ``xs * w_hi`` in ``pallas_ld.py:929``): the
+    bf16-exact weights; split_bf16's w_hi and w_lo; lo_int8's w_hi and its
+    int8 residual level q (an integer <= 127, exact in bf16)."""
+    rows = _float_rows(weights, kind)
+    if kind == "lo":
+        rows = [*rows, weights[1]]
+    return torch.stack(rows).to(torch.bfloat16).view(torch.int16) \
+        .contiguous()
 
 
 def _tile_rows(tiles: torch.Tensor, span: int) -> torch.Tensor:
@@ -550,7 +581,7 @@ def _launch(name: str, src0: int, src1: int, weights, auxc, tile_i,
 
     dev = weights.device
     k = tile_i.shape[0]
-    scale_ptr = wf_ptr = 0
+    scale_ptr = wb_ptr = 0
     nflt = 0
     if kind == "unit":
         scale = torch.ones(1, dtype=torch.float32, device=dev)
@@ -563,8 +594,8 @@ def _launch(name: str, src0: int, src1: int, weights, auxc, tile_i,
     if scale is not None:
         scale_ptr = scale.data_ptr()
     if kind in ("exact", "split", "lo"):
-        wf = torch.stack(_float_rows(weights, kind)).contiguous()
-        wf_ptr, nflt = wf.data_ptr(), wf.shape[0]
+        wb = float_pass_bits(weights, kind)
+        wb_ptr, nflt = wb.data_ptr(), wb.shape[0] - nlev
     d = torch.empty((k, tile, tile), dtype=torch.float32, device=dev)
     dp = torch.empty_like(d)
     r2 = torch.empty_like(d)
@@ -573,22 +604,23 @@ def _launch(name: str, src0: int, src1: int, weights, auxc, tile_i,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, name)(
-            src0, src1, scale_ptr, wf_ptr, auxc.data_ptr(),
+            src0, src1, scale_ptr, wb_ptr, auxc.data_ptr(),
             tile_i.data_ptr(), tile_j.data_ptr(), emit.data_ptr(),
             d.data_ptr(), dp.data_ptr(), r2.data_ptr(), keep.data_ptr(),
             k, tile, n_sites, s_pad, n_pad, seq_chunk, nlev, nflt, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
     if k > 0:
-        launches[name + ("_lo_int8" if kind == "lo" else "")] += 1
+        launches[launch_name(name, kind)] += 1
     return PairStats(d=d, d_prime=dp, r2=r2, keep=keep.view(torch.bool))
 
 
 def _q_levels(weights: torch.Tensor, kind: str,
               nlev: int) -> torch.Tensor | None:
-    """``[levels, N_pad]`` int8 weight levels the kernel multiplies into
-    the A operand: ones (unit), q1..qL (the int8 cascades), lo_int8's q
-    row; None for the float kinds."""
+    """``[levels, N_pad]`` int8 weight levels a kernel multiplies into an
+    operand: ones (unit), q1..qL (the int8 cascades), lo_int8's q row (the
+    general kernel; the factorized one takes it as a bf16 pass,
+    :func:`float_pass_bits`); None for the other float kinds."""
     if kind == "unit":
         return torch.ones((1, weights.shape[1]), dtype=torch.int8,
                           device=weights.device)
@@ -624,8 +656,8 @@ def tile_stats_majmin(codes_sm, weights, auxc, tile_i, tile_j, emit, *,
         return tile_stats_majmin_plain(codes_sm, weights, auxc, tile_i,
                                        tile_j, emit, **kw)
     q_ptr = 0
-    q = _q_levels(weights, kind, nlev)
-    if q is not None:
+    if kind in ("unit", "int"):
+        q = _q_levels(weights, kind, nlev)
         q_ptr = q.data_ptr()
     return _launch("ld_majmin_codes", codes_sm.data_ptr(), q_ptr, weights,
                    auxc, tile_i, tile_j, emit, kind=kind, nlev=nlev,
@@ -664,15 +696,11 @@ def tile_stats_majmin_pre(planes, xq, weights, auxc, tile_i, tile_j, emit, *,
     if device.type == "cpu":
         return tile_stats_majmin_pre_plain(planes, xq, weights, auxc, tile_i,
                                            tile_j, emit, **kw)
-    # Unit weights read the planes as their single int8 level; lo_int8
-    # passes its q row in xq's place and the kernel builds planes * q inline.
-    q = _q_levels(weights, kind, nlev) if kind == "lo" else None
-    if kind == "int":
-        xq_ptr = xq.data_ptr()
-    elif kind == "lo":
-        xq_ptr = q.data_ptr()
-    else:
-        xq_ptr = planes.data_ptr()
+    # Unit weights read the planes as their single int8 level; the float
+    # kinds read the planes alone and build their B rows from the planes
+    # and the bf16 pass bits in-kernel (lo_int8's planes * q too, as JAX
+    # builds xq in-kernel for this mode).
+    xq_ptr = xq.data_ptr() if kind == "int" else planes.data_ptr()
     return _launch("ld_majmin_planes", planes.data_ptr(), xq_ptr, weights,
                    auxc, tile_i, tile_j, emit, kind=kind, nlev=nlev,
                    tile=tile, n_sites=n_sites, s_pad=s_pad, n_pad=n_pad,

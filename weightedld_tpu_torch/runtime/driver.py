@@ -87,10 +87,10 @@ log = logging.getLogger("weightedld_tpu_torch")
 _UNSET = object()  # "use the session default" sentinel (None is meaningful)
 
 # The factorized kernel stages 64 sequence columns per step in its float
-# modes (kKS in csrc/ld_majmin.cu) and 128 in its integer modes (kWK): a
-# partial step costs a whole one, so padding N up to a multiple of 64 is
-# free, and 64-column chunks keep every staged row 16-byte aligned (the
-# integer modes' 16-byte cp.async staging).
+# modes (bf16 operands) and 128 in its integer modes (Geom::kCols in
+# csrc/ld_majmin.cu): a partial step costs a whole one, so padding N up to a
+# multiple of 64 is free, and 64-column chunks keep every staged row 16-byte
+# aligned (16-byte cp.async staging).
 SEQ_CHUNK_STEP = 64
 # Largest chunk whose int32 joints convert to f32 exactly under the int8
 # cascade (|J| <= 127 * chunk < 2^24): the f32 combine then rounds only in
@@ -117,9 +117,9 @@ class DriverConfig:
                                     # (the last two lossy)
     preplaned: str = "auto"         # "auto": precomputed maj/dmin (+ xq)
                                     # planes for the factorized kernel when
-                                    # they fit (plane_budget) and, in the
-                                    # integer modes, the seq chunk is a
-                                    # multiple of 16 | "on": planes
+                                    # they fit (plane_budget) and the seq
+                                    # chunk is a multiple of 16 (see
+                                    # auto_preplaned) | "on": planes
                                     # for every kernel the session runs,
                                     # the general kernel's one-hot planes
                                     # included | "off": codes only
@@ -173,8 +173,8 @@ def resolve_tile(tile: int | None) -> int:
     """Site-tile side.  Auto: 256.  On the H100 the tile only sets the
     granularity of the plan, of the ``[K, T, T]`` batch outputs and of the
     diagonal waste: the factorized kernel's CTA covers a 64 x 32 pair block
-    in its integer modes and 32 x 32 in its float modes whatever T is (any
-    multiple of 64 keeps every thread busy).  At T = 256 a diagonal
+    in every weight mode whatever T is (any multiple of 64 keeps every
+    thread busy).  At T = 256 a diagonal
     tile wastes half of 2^16 pairs, < 1% of the work for S >= 16k, and the
     plan stays small (18,528 tiles at S = 49,152).  An explicit ``tile``
     always wins."""
@@ -218,22 +218,29 @@ def resolve_tiles_per_batch(tiles_per_batch: int | None, n_tiles: int,
 
 
 def plane_budget(device: torch.device) -> int:
-    """Bytes the preplaned planes (+ xq) may take under ``preplaned="auto"``:
-    half the card's free memory.  On the H100 the preplaned entry scans
-    faster than the codes entry at every N and S measured, and its set-up
-    costs no more (PERF.md): with the integer modes on the tensor cores,
-    the codes entry's scans take 1.02-1.40x as long (N = 500-2,000 x
-    S = 49,152, N = 1,000 x S = 147,456; the wider N, the larger the gap),
-    since building the operands from the codes on CUDA cores sets its
-    pace.  So memory decides, except where a seq chunk that is not a
-    multiple of 16 leaves the integer modes' preplaned entry 4-byte
-    copies (the session then takes the codes entry); the other half holds
-    the codes during the plane build and the batch outputs.  On the CPU:
-    0, so the plain versions run from the codes and build no planes."""
+    """Bytes the preplaned planes (+ xq) may take under ``preplaned="auto"``
+    (:func:`auto_preplaned`): half the card's free memory; the other half
+    holds the codes during the plane build and the batch outputs.  The
+    preplaned entry's set-up costs no more than the codes entry's on the
+    H100 (PERF.md), so memory and the seq chunk decide.  On the CPU: 0, so
+    the plain versions run from the codes and build no planes."""
     if device.type != "cuda":
         return 0
     free, _total = torch.cuda.mem_get_info(device)
     return free // 2
+
+
+def auto_preplaned(seq_chunk: int, plane_bytes: int, budget: int) -> bool:
+    """Whether ``preplaned="auto"`` takes the factorized kernel's preplaned
+    entry: when its planes (+ xq) fit ``budget`` bytes (``plane_budget``)
+    and the seq chunk is a multiple of 16, in every weight mode.  Whole
+    sessions on the H100 (PERF.md): the preplaned entry scans faster at
+    every auto chunk measured (int8x3 1.04-1.40x, lo_int8 and split_bf16
+    1.03-1.11x), where its operand rows are read 16 bytes at a time; at a
+    chunk that is not a multiple of 16 they are read 4 bytes at a time and
+    the codes entry is the faster (int8x3 3.4x, the float modes
+    1.13-1.14x)."""
+    return plane_bytes <= budget and seq_chunk % 16 == 0
 
 
 def packing_permutation(site_counts: np.ndarray,
@@ -375,14 +382,10 @@ class LdSession:
         # planes only under "on": JAX never selects them (measured neutral
         # on the TPU, pallas_ld.py:40-41), and the codes are read anyway.
         mm_bytes = (1 + nlev) * 2 * s_pad * n_pad
-        # The integer modes' tensor-core body copies planes 16 bytes at a
-        # time only where every seq chunk starts 16-byte aligned; with
-        # 4-byte copies its preplaned entry is the slower one (PERF.md).
-        planes_staged = not (unit or nlev) or seq_chunk % 16 == 0
         self._preplaned = "majmin" in kernels and (
             cfg.preplaned == "on" or (
-                cfg.preplaned == "auto" and planes_staged
-                and mm_bytes <= plane_budget(self.device)))
+                cfg.preplaned == "auto" and auto_preplaned(
+                    seq_chunk, mm_bytes, plane_budget(self.device))))
         self.general_preplaned = "general" in kernels and cfg.preplaned == "on"
         # Keyword arguments of every factorized kernel call of this session;
         # the general kernel adds its planes.
