@@ -15,8 +15,10 @@ result line):
              and unit) on alignments with 1-10 % UNKNOWN cells and P = 2..5
              planes, a restricted ``planes`` tuple among them (ragged S and
              N, several seq chunks, emit=0 tiles, int8x3 / int8 / unit /
-             bf16-exact / split_bf16 / lo_int8 weights; the factorized
-             lo_int8 and bf16-exact rows must give r2 bit for bit); then
+             bf16-exact / split_bf16 / lo_int8 weights), and the general
+             body's edges (``GENERAL_EDGE_CASES``) in every weight mode; the
+             factorized lo_int8 and bf16-exact rows and every general row
+             but split_bf16 must give r2 bit for bit; then
              each kernel's and its plain version's time on the full tile
              plan of N=1,000 x S=8,192 (the general kernels at P = 5 with
              1 % UNKNOWN sites; each weighted entry in int8x3 and in
@@ -77,7 +79,10 @@ result line):
              on the hybrid's general phase) and ``run_to_tsv(kernel=
              "general", preplaned="on", weight_quant="lo_int8")``, each
              held to its int8x3 twin at rtol 2e-5 / atol 1e-6 with every
-             planted pair; (3) the CLI with ``--unweighted``:
+             planted pair; (2c) split_bf16 and bf16-rounded weights
+             through ``kernel="general"`` on both entries, every planted
+             pair, one batch each kernel against plain; (3) the CLI with
+             ``--unweighted``:
              ``ld_general_unit``;
              (4) CPU vs card on the first 4,096 columns, ``--tile 256
              --seq-chunk 256 --r2-threshold 0.03``, weighted and
@@ -97,7 +102,12 @@ interleaved, in int8x3, lo_int8 and split_bf16; ``--phases pace`` times
 variants of the factorized body that drop or change one part of its work
 (``PACE_VARIANTS``) beside the committed body; ``--phases yardstick``
 times ``torch._int_mm`` and a bf16 ``torch.mm`` over the factorized
-kernel's contraction alone (the kernels phase runs them too).
+kernel's contraction alone (the kernels phase runs them too); ``--phases
+general`` runs every general entry in every weight mode on each general
+case and the 528-tile plan, synchronized after each launch (run it under
+``compute-sanitizer`` where the card allows); ``--phases gpace`` times
+variants of the general body that drop one part of its work
+(``GENERAL_PACE_VARIANTS``) beside the committed body.
 
 The launch counters are zeroed just before each run of the main path and
 read just after it; the kernels line reports ``ld_majmin_planes`` from the
@@ -105,8 +115,9 @@ headline CLI run, ``ld_majmin_codes`` from the headline codes-entry run,
 ``ld_general`` from the ambiguous CLI run, ``ld_general_planes`` from its
 preplaned ``kernel="general"`` run and ``ld_general_unit`` from its
 ``--unweighted`` CLI run, the four lo_int8 variants from the lo_int8
-runs of the analytics and ambiguous phases, and the factorized split_bf16
-and bf16-exact variants from the analytics phase's summarize runs.
+runs of the analytics and ambiguous phases, the factorized split_bf16
+and bf16-exact variants from the analytics phase's summarize runs, and the
+general ones from the ambiguous phase's ``kernel="general"`` runs (2c).
 Launches of the kernel-vs-plain checks (every weighted entry in lo_int8
 too, the factorized ones in split_bf16 and bf16-exact, each on a full
 batch of the main path's own session) are not counted.  The last three
@@ -184,6 +195,15 @@ KERNELS = {
                            GENERAL_SRC),
     "ld_general_planes_lo_int8": ("weightedld_tpu/ops/pallas_ld.py:307",
                                   GENERAL_SRC),
+    # The general kernel's other float modes (pallas_ld.py:316-325).
+    "ld_general_split_bf16": ("weightedld_tpu/ops/pallas_ld.py:316",
+                              GENERAL_SRC),
+    "ld_general_planes_split_bf16": ("weightedld_tpu/ops/pallas_ld.py:316",
+                                     GENERAL_SRC),
+    "ld_general_bf16_exact": ("weightedld_tpu/ops/pallas_ld.py:322",
+                              GENERAL_SRC),
+    "ld_general_planes_bf16_exact": ("weightedld_tpu/ops/pallas_ld.py:322",
+                                     GENERAL_SRC),
 }
 # The H100 SXM's published dense peaks at 700 W (int8 and bf16 tensor
 # cores, HBM3), against which bound_ms is computed.
@@ -192,6 +212,31 @@ PEAK_INT8_OPS, PEAK_BF16_FLOPS, PEAK_BYTES = 1979e12, 989e12, 3.35e12
 # earlier dp4a body, in launches of <= 128 tiles (PERF.md), printed beside
 # the tensor-core body's.
 DP4A_MS = {"ld_majmin_codes": 10.307, "ld_majmin_planes": 9.455}
+# The general entries' times on the same plan with the earlier CUDA-core
+# dp4a body (one launch each, an H100 80GB HBM3 at 700 W; PERF.md),
+# printed beside the tensor-core body's.
+GENERAL_DP4A_MS = {
+    "ld_general": 22.867, "ld_general_unit": 17.876,
+    "ld_general_planes": 32.396, "ld_general_lo_int8": 31.379,
+    "ld_general_planes_lo_int8": 41.020, "ld_general_split_bf16": 28.843,
+    "ld_general_bf16_exact": 24.961}
+
+# The general kernel's cases: seed, alphabet, N, S, tile, seq_chunk, weight
+# mode, UNKNOWN cell fraction, planes (None = the planes present).
+GENERAL_CASES = (
+    (21, (0, 1, 2, 3, 4), 1000, 700, 256, 256, "int8x3", 0.01, None),
+    (22, (0, 1, 2, 3, 4), 150, 300, 48, 64, "int8x3", 0.05, None),
+    (23, (0, 1, 4), 150, 300, 48, 64, "unit", 0.10, None),
+    (24, (0, 1), 150, 300, 48, 64, "exact", 0.05, None),
+    (25, (0, 1, 2, 4), 150, 300, 48, 64, "split_bf16", 0.03, None),
+    (26, (0, 3, 4), 150, 300, 48, 64, "int8", 0.02, None),
+    (27, (0, 1, 2, 3, 4), 37, 90, 32, 40, "unit", 0.05, None),
+    (28, (0, 1, 2, 3, 4), 333, 257, 64, 120, "int8x3", 0.04, (0, 2, 4)),
+    (29, (0, 1, 2, 3, 4), 333, 257, 64, 120, "unit", 0.04, (1, 3)),
+    (30, (0, 1, 2, 3, 4), 1000, 700, 256, 256, "lo_int8", 0.01, None),
+    (32, (0, 1, 2, 3, 4), 333, 257, 64, 120, "lo_int8", 0.04, (0, 2, 4)),
+)
+GENERAL_MODES = ("int8x3", "int8", "unit", "lo_int8", "split_bf16", "exact")
 
 
 def log(msg: str) -> None:
@@ -413,24 +458,44 @@ def _hold_pieces(got, ref: list, piece: int, label: str, bitwise: dict,
     return worst
 
 
-# Weight mode -> the suffix its launches count under: the factorized
-# entries count every float mode under its own name, the general entries
-# lo_int8 alone.
+# Weight mode -> the suffix its launches count under: every entry counts
+# each float mode under its own name.
 MODE_SUFFIX = {"lo_int8": "_lo_int8", "split_bf16": "_split_bf16",
                "exact": "_bf16_exact"}
 # The factorized rows r2 must be bit-equal on (their weights keep every f32
 # partial sum exact: the note at the top of csrc/ld_majmin.cu).
 BIT_EQUAL_MODES = ("lo_int8", "exact")
+# The general rows r2 must be bit-equal on: the integer modes always, and
+# lo_int8 and bf16-exact, whose kernels-phase weights (in [2^-5, 1] or
+# multiples of 1/4, N < 4,096) keep every f32 partial sum exact.
+GENERAL_BIT_EQUAL_MODES = ("int8x3", "int8", "unit", "lo_int8", "exact")
 # Passes of each factorized weight mode on the int8 and on the bf16 tensor
 # cores, by the function (lo_int8's residual is an int8 pass).
 INT8_PASSES = {"int8x3": 3, "lo_int8": 1}
 BF16_PASSES = {"lo_int8": 1, "split_bf16": 2, "exact": 1}
+# The general body's passes (the weighted ones and the unit pass whose
+# joint gives the counts) and their type: its own work is P^2 MACs per pass,
+# pair and sequence column.
+GENERAL_PASSES = {"int8x3": (4, "int8"), "int8": (3, "int8"),
+                  "unit": (1, "int8"), "lo_int8": (3, "bf16"),
+                  "split_bf16": (3, "bf16"), "exact": (2, "bf16")}
+# The general body's edges, each in every weight mode and both entries:
+# seed, alphabet, N, S, tile, seq_chunk, UNKNOWN cell fraction, planes.  P
+# = 2..5; T = 512 and tiles below a CTA's block of sites; seq chunks that
+# are not multiples of 16 (4-byte staging); N = 3,000 in three chunks; a
+# restricted planes tuple.
+GENERAL_EDGE_CASES = (
+    (41, (0, 1), 200, 600, 512, 200, 0.03, None),
+    (42, (0, 1, 2), 150, 300, 96, 40, 0.05, None),
+    (43, (0, 1, 2, 4), 3000, 300, 96, 1024, 0.02, None),
+    (44, (0, 1, 2, 3, 4), 200, 600, 512, 200, 0.01, None),
+    (45, (0, 1, 2, 3, 4), 150, 300, 48, 120, 0.05, (1, 3, 4)),
+    (46, (0, 1, 2, 3, 4), 3000, 300, 96, 1024, 0.02, None),
+)
 
 
 def _variant(name: str, wq: str) -> str:
     """The kernels-line name of entry ``name`` under weight mode ``wq``."""
-    if name.startswith("ld_general") and wq != "lo_int8":
-        return name
     return name + MODE_SUFFIX.get(wq, "")
 
 
@@ -452,10 +517,7 @@ def phase_kernels() -> dict:
 
     dev = torch.device("cuda")
     err = {name: 0.0 for name in KERNELS}
-    # Every kernels-phase row, the general kernel's timed-only split_bf16
-    # and bf16-exact rows included.
-    bitwise = {name: True for name in (*KERNELS, "ld_general_split_bf16",
-                                       "ld_general_bf16_exact")}
+    bitwise = {name: True for name in KERNELS}
     cases = [
         # seed, alphabet, N, S, tile, seq_chunk, weight mode
         (1, (0, 1, 4), 1000, 700, 256, 256, "int8x3"),
@@ -569,22 +631,12 @@ def phase_kernels() -> dict:
 
     # The general kernel's entries (codes, unit weights, preplaned) against
     # their plain versions: P = 2..5, 1-10 % UNKNOWN cells, a restricted
-    # planes tuple, every weight mode.
-    gcases = [
-        # seed, alphabet, N, S, tile, seq_chunk, weights, UNKNOWN, planes
-        (21, (0, 1, 2, 3, 4), 1000, 700, 256, 256, "int8x3", 0.01, None),
-        (22, (0, 1, 2, 3, 4), 150, 300, 48, 64, "int8x3", 0.05, None),
-        (23, (0, 1, 4), 150, 300, 48, 64, "unit", 0.10, None),
-        (24, (0, 1), 150, 300, 48, 64, "exact", 0.05, None),
-        (25, (0, 1, 2, 4), 150, 300, 48, 64, "split_bf16", 0.03, None),
-        (26, (0, 3, 4), 150, 300, 48, 64, "int8", 0.02, None),
-        (27, (0, 1, 2, 3, 4), 37, 90, 32, 40, "unit", 0.05, None),
-        (28, (0, 1, 2, 3, 4), 333, 257, 64, 120, "int8x3", 0.04, (0, 2, 4)),
-        (29, (0, 1, 2, 3, 4), 333, 257, 64, 120, "unit", 0.04, (1, 3)),
-        (30, (0, 1, 2, 3, 4), 1000, 700, 256, 256, "lo_int8", 0.01, None),
-        (32, (0, 1, 2, 3, 4), 333, 257, 64, 120, "lo_int8", 0.04, (0, 2, 4)),
-    ]
-    for seed, alpha, n, s, tile, chunk, wq, unk, planes in gcases:
+    # planes tuple, every weight mode; then the body's edges in every mode.
+    edges = [(seed, alpha, n, s, tile, chunk, wq, unk, planes)
+             for seed, alpha, n, s, tile, chunk, unk, planes
+             in GENERAL_EDGE_CASES for wq in GENERAL_MODES]
+    for seed, alpha, n, s, tile, chunk, wq, unk, planes in (*GENERAL_CASES,
+                                                            *edges):
         codes, wr, ti, tj, em, kw = _general_case_inputs(
             seed, alpha, n, s, tile, chunk, wq, unk, planes, dev)
         label = (f"N={n} S={s} T={tile} chunk={chunk} {wq} UNKNOWN {unk} "
@@ -609,16 +661,19 @@ def phase_kernels() -> dict:
     # Time the general entries and their plain versions on the full plan of
     # N=1,000 x S=8,192 at P = 5 with 1 % UNKNOWN sites (T=256, one
     # 1,024-wide chunk; the kernel in one launch, the plain version in
-    # pieces), outputs held against each other.
-    # The split_bf16 and bf16-exact rows (launches counted under
-    # ld_general) are timed beside their bound only.
-    for name, wq, pre in (("ld_general", "int8x3", False),
-                          ("ld_general_unit", "unit", False),
-                          ("ld_general_planes", "int8x3", True),
-                          ("ld_general_lo_int8", "lo_int8", False),
-                          ("ld_general_planes_lo_int8", "lo_int8", True),
-                          ("ld_general_split_bf16", "split_bf16", False),
-                          ("ld_general_bf16_exact", "exact", False)):
+    # pieces), outputs held against each other, in every mode the main
+    # path launches.
+    own = {}
+    for entry, wq, pre in (("ld_general", "int8x3", False),
+                           ("ld_general_unit", "unit", False),
+                           ("ld_general_planes", "int8x3", True),
+                           ("ld_general", "lo_int8", False),
+                           ("ld_general_planes", "lo_int8", True),
+                           ("ld_general", "split_bf16", False),
+                           ("ld_general_planes", "split_bf16", True),
+                           ("ld_general", "exact", False),
+                           ("ld_general_planes", "exact", True)):
+        name = _variant(entry, wq)
         codes, wr, ti, tj, em, kw = _general_case_inputs(
             31, (0, 1, 2, 3, 4), N_HEAD, S_TIMED, 256, 1024, wq, 0.0, None,
             dev, dirty_sites=S_TIMED // 100)
@@ -631,21 +686,25 @@ def phase_kernels() -> dict:
                        em[lo:lo + step], preplaned=pre, **kw)
                     for lo in range(0, ti.shape[0], step)]
 
-        # Work: per output pair and sequence column the 2P count MACs, then
-        # the four selected cells per weight pass (int8x3: 3 int8 levels;
-        # unit: 1; lo_int8: one int8 and one bf16; split_bf16: two bf16;
-        # bf16-exact: one bf16) — the least work of the known formulations
-        # (the TPU's dense P^2 L + 2P joint is larger).
+        # Least work: per output pair and sequence column the 2P count
+        # MACs, then the four selected cells per weight pass (int8x3: 3
+        # int8 levels; unit: 1; lo_int8: one int8 and one bf16; split_bf16:
+        # two bf16; bf16-exact: one bf16) — the least work of the known
+        # formulations, the table's bound.  Own work: this body's P^2 MACs
+        # per pass (GENERAL_PASSES), the count pass included.
         p = len(kw["planes"])
         pairs = ti.shape[0] * 256 * 256
         n_pad = codes.shape[1]
         cells = {"int8x3": 12, "unit": 4, "lo_int8": 4}.get(wq, 0)
         cells16 = {"lo_int8": 4, "split_bf16": 8, "exact": 4}.get(wq, 0)
-        bound[name] = _bound(
-            2 * pairs * n_pad * (2 * p + cells),
-            2 * pairs * n_pad * cells16,
-            src.numel() + wr.numel() * 4 + 12 * ti.shape[0] + 13 * pairs)
-        ms[name], (got,) = _time_cuda(lambda: grun(G.tile_stats_general), 3)
+        nbytes = src.numel() + wr.numel() * 4 + 12 * ti.shape[0] + 13 * pairs
+        bound[name] = _bound(2 * pairs * n_pad * (2 * p + cells),
+                             2 * pairs * n_pad * cells16, nbytes)
+        passes, kind = GENERAL_PASSES[wq]
+        ops = 2 * pairs * n_pad * p * p * passes
+        own[name] = _bound(ops if kind == "int8" else 0,
+                           ops if kind == "bf16" else 0, nbytes)
+        ms[name], (got,) = _time_cuda(lambda: grun(G.tile_stats_general), 5)
         plain_ms[name], ref = _time_cuda(
             lambda: grun(G.tile_stats_general_plain, step=batch), 1)
         err[name] = max(err.get(name, 0.0), _hold_pieces(
@@ -664,11 +723,29 @@ def phase_kernels() -> dict:
             f"({bound[name][1]}) for {ti.shape[0]} tiles (N={N_HEAD}, "
             f"S={S_TIMED}, T=256, {shape[name]}): "
             f"{n_pairs / (ms[name] / 1e3):.4g} pairs/s kernel | {card}")
+    for name, old in GENERAL_DP4A_MS.items():
+        log(f"[kernels] {name} on wgmma: {ms[name]:.3f} ms in one launch, "
+            f"where the dp4a body took {old} ms (an H100 80GB HBM3 at 700 "
+            f"W): {old / ms[name]:.2f}x; least-work bound "
+            f"{bound[name][0]:.4f} ms ({bound[name][0] / ms[name]:.1%}), "
+            f"this body's own-work bound {own[name][0]:.4f} ms "
+            f"({own[name][0] / ms[name]:.1%}) | {card}")
+    for name in ("ld_general_planes_split_bf16",
+                 "ld_general_planes_bf16_exact"):
+        log(f"[kernels] {name} on wgmma: {ms[name]:.3f} ms in one launch "
+            f"(no dp4a time); least-work bound {bound[name][0]:.4f} ms "
+            f"({bound[name][0] / ms[name]:.1%}), own-work bound "
+            f"{own[name][0]:.4f} ms ({own[name][0] / ms[name]:.1%}) | {card}")
     log(f"[kernels] r2 bitwise equal, kernel vs plain: {bitwise}")
     unequal = [_variant(entry, wq) for entry in ("ld_majmin_codes",
                                                  "ld_majmin_planes")
                for wq in BIT_EQUAL_MODES
                if not bitwise[_variant(entry, wq)]]
+    unequal += [_variant(entry, wq) for entry in ("ld_general",
+                                                  "ld_general_planes")
+                for wq in GENERAL_BIT_EQUAL_MODES
+                if not bitwise[_variant(entry, wq)]]
+    unequal += [] if bitwise["ld_general_unit"] else ["ld_general_unit"]
     if unequal:
         raise AssertionError(f"r2 not bit-equal to the plain version in "
                              f"{unequal}, whose weights keep every f32 "
@@ -681,6 +758,46 @@ def phase_kernels() -> dict:
             f"700 W) | {card}")
     phase_yardstick()                      # the same call, the same clock
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound}
+
+
+def phase_general() -> None:
+    """Not in the default run: every general entry in every weight mode, on
+    each of ``GENERAL_CASES`` and on one launch of the 528-tile timing plan,
+    synchronized after each launch and held against the plain version, so
+    that a fault shows at the launch that made it (run it under
+    ``compute-sanitizer --tool memcheck`` where the toolkit has one)."""
+    import torch
+
+    from weightedld_tpu_torch.ops import cuda_general as G
+
+    dev = torch.device("cuda")
+    cases = [(seed, alpha, n, s, tile, chunk, wq, unk, planes, None)
+             for seed, alpha, n, s, tile, chunk, _wq, unk, planes
+             in GENERAL_CASES for wq in GENERAL_MODES]
+    cases += [(31, (0, 1, 2, 3, 4), N_HEAD, S_TIMED, 256, 1024, wq, 0.0,
+               None, S_TIMED // 100) for wq in GENERAL_MODES]
+    for seed, alpha, n, s, tile, chunk, wq, unk, planes, dirty in cases:
+        codes, wr, ti, tj, em, kw = _general_case_inputs(
+            seed, alpha, n, s, tile, chunk, wq, unk, planes, dev,
+            dirty_sites=dirty)
+        for pre in (False, True):
+            label = (f"{'planes' if pre else 'codes'} N={n} S={s} T={tile} "
+                     f"chunk={chunk} {wq} planes={kw['planes']}")
+            src = G.build_planes_tiled(codes, tile=tile, planes=kw["planes"]) \
+                if pre else codes
+            torch.cuda.synchronize()
+            got = G.tile_stats_general(src, wr, ti, tj, em, preplaned=pre,
+                                       **kw)
+            torch.cuda.synchronize()
+            step = 128
+            ref = [G.tile_stats_general_plain(
+                src, wr, ti[lo:lo + step], tj[lo:lo + step], em[lo:lo + step],
+                preplaned=pre, **kw) for lo in range(0, ti.shape[0], step)]
+            e = _hold_pieces(got, ref, step, label, {"x": True}, "x")
+            log(f"[general] ok: {label}, {ti.shape[0]} tiles, max |kernel - "
+                f"plain| {e}")
+            del got, ref, src
+    log(f"[general] every case passed | {card_line()}")
 
 
 def phase_yardstick() -> None:
@@ -1460,6 +1577,41 @@ def phase_ambiguous(tmp: Path) -> tuple[dict, dict]:
             f"planted pair, within rtol 2e-5 / atol 1e-6 of int8x3 (max abs "
             f"diff {worst})")
 
+    # (2c) split_bf16, and the weights rounded to bf16 (bf16-exact), through
+    # kernel="general" on both entries: only the mode's general entry runs,
+    # every planted pair is present, and one batch of each session holds to
+    # the plain version.
+    import torch
+
+    w_bf16 = torch.from_numpy(res.weights).to(torch.bfloat16).float().numpy()
+    for wq, w, mode in (("split_bf16", res.weights, "split_bf16"),
+                        ("none", w_bf16, "exact")):
+        for pp, entry in (("off", "ld_general"), ("on", "ld_general_planes")):
+            name = _variant(entry, mode)
+            out = tmp / f"ambiguous_general_{mode}_{pp}.tsv"
+            cfg = DriverConfig(kernel="general", preplaned=pp,
+                               r2_threshold=0.1, weight_quant=wq)
+            _n, counts = _counted(run_to_tsv, res.alignment, w, res.site_map,
+                                  out, cfg, device="cuda", ndigits=8)
+            if not counts[name] or sum(counts.values()) != counts[name]:
+                raise AssertionError(f"kernel='general' {mode} preplaned={pp}"
+                                     f" must launch {name} only: {counts}")
+            launches[name] = counts[name]
+            missing = planted - set(read_pairs(out))
+            if missing:
+                raise AssertionError(f"{name}: {len(missing)} planted pairs "
+                                     "missing")
+            sess = LdSession(res.alignment, w, res.site_map, cfg,
+                             device="cuda")
+            got, err[name] = check_session_batch(
+                sess, f"ambiguous general {mode} preplaned={pp}")
+            if got != name:
+                raise AssertionError(f"ambiguous {mode} preplaned={pp} ran "
+                                     f"{got}")
+            log(f"[ambiguous] (2c) {name}: launches {counts}, every planted "
+                f"pair present")
+            del sess
+
     # (3) The CLI with --unweighted.
     out3 = tmp / "ambiguous_unweighted.tsv"
     counts = _drive(["--file", str(fasta), "--r2-threshold", "0.1",
@@ -1762,6 +1914,58 @@ EXACT_PACE_VARIANTS = ("suspend-hint", "backoff", "4-stages-4-raw",
                        "raw-depth-2", "1-builder", "4-stages")
 
 
+def _variant_libs(source: str, variants: dict, entries: tuple,
+                  subdir: str) -> dict:
+    """Compile each of ``variants`` (name -> textual edits (old, new) of
+    ``csrc/<source>``, each matching the source exactly once) beside the
+    committed libraries, one nvcc each, all started together; returns
+    ``{"committed": library, name: library with ``entries`` replaced}``."""
+    import ctypes
+    from types import SimpleNamespace
+
+    from weightedld_tpu_torch.ops import _build
+
+    src = (_build.CSRC / source).read_text()
+    out = _build.BUILD_DIR / subdir
+    out.mkdir(parents=True, exist_ok=True)
+    for header in _build.CSRC.glob("*.cuh"):
+        (out / header.name).write_text(header.read_text())
+    texts = {}
+    for name, edits in variants.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise AssertionError(f"variant {name}: edit matches "
+                                     f"{text.count(old)} times")
+            text = text.replace(old, new)
+        texts[name] = text
+    jobs = {}
+    for name, text in texts.items():
+        cu, so = out / f"{name}.cu", out / f"lib{name}.so"
+        cu.write_text(text)
+        jobs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        base = _build.load_library()
+    finally:
+        done = {name: (so, proc.communicate()[1], proc.returncode)
+                for name, (so, proc) in jobs.items()}
+    libs = {"committed": base}
+    for name, (so, err, rc) in done.items():
+        if rc != 0:
+            raise RuntimeError(f"nvcc of variant {name}:\n{err}")
+        lib = ctypes.CDLL(str(so))
+        fns = {}
+        for entry in entries:
+            fn = getattr(lib, entry)
+            fn.argtypes = _build.ENTRIES[entry]
+            fn.restype = ctypes.c_int
+            fns[entry] = fn
+        libs[name] = SimpleNamespace(**{**vars(base), **fns})
+    return libs
+
+
 def phase_pace() -> None:
     """Not in the default run: what sets the pace of the factorized body.
     Each variant of ``PACE_VARIANTS`` is compiled from the source beside
@@ -1771,45 +1975,15 @@ def phase_pace() -> None:
     committed.  Variants that drop work compute nothing meaningful; those
     of ``EXACT_PACE_VARIANTS`` are held bit for bit to the committed
     body."""
-    import ctypes
-    from types import SimpleNamespace
-
     import torch
 
     from weightedld_tpu_torch.ops import _build
     from weightedld_tpu_torch.ops import cuda_ld as K
 
     dev = torch.device("cuda")
-    src = (_build.CSRC / "ld_majmin.cu").read_text()
-    out = _build.BUILD_DIR / "pace"
-    out.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, edits in PACE_VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise AssertionError(f"pace variant {name}: edit matches "
-                                     f"{text.count(old)} times")
-            text = text.replace(old, new)
-        cu, so = out / f"{name}.cu", out / f"lib{name}.so"
-        cu.write_text(text)
-        jobs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    base = _build.load_library()
-    libs = {"committed": base}
-    for name, (so, proc) in jobs.items():
-        _o, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc of pace variant {name}:\n{err}")
-        lib = ctypes.CDLL(str(so))
-        fns = {}
-        for entry in ("ld_majmin_codes", "ld_majmin_planes"):
-            fn = getattr(lib, entry)
-            fn.argtypes = _build.ENTRIES[entry]
-            fn.restype = ctypes.c_int
-            fns[entry] = fn
-        libs[name] = SimpleNamespace(**{**vars(base), **fns})
+    libs = _variant_libs("ld_majmin.cu", PACE_VARIANTS,
+                         ("ld_majmin_codes", "ld_majmin_planes"), "pace")
+    base = libs["committed"]
     order = [*libs, *reversed(libs)]
     try:
         for wq in ("split_bf16", "lo_int8", "exact", "int8x3"):
@@ -1842,6 +2016,97 @@ def phase_pace() -> None:
         _build._lib = base
 
 
+# Variants of csrc/ld_general.cu for the gpace phase, each also built for
+# P = 5 alone (the timing plan's), like the committed body beside them.
+_GENERAL_P5 = ("""\
+    case 1: return by_mode<1, PRE>(p, k, nlev, nflt, unit, stream);
+    case 2: return by_mode<2, PRE>(p, k, nlev, nflt, unit, stream);
+    case 3: return by_mode<3, PRE>(p, k, nlev, nflt, unit, stream);
+    case 4: return by_mode<4, PRE>(p, k, nlev, nflt, unit, stream);
+""", "")
+_GENERAL_MMA = ("""\
+          wgmma<G::kN>(D, da, db, h == 0 ? scale_d : 1);
+          wgmma<G::kN>(D, da + 2, db + 2, 1);
+          wgmma<G::kN>(D, da + 4, db + 4, 1);
+          wgmma<G::kN>(D, da + 6, db + 6, 1);
+""", "")
+_GENERAL_BUILD = ("""\
+    build_stage<G, PRE, ROLE>(p, at.width(p),
+                              graw + slot * G::kRawBytes + kBase,
+                              gst + cur.stage * G::kStageBytes, pt);
+""", "")
+_GENERAL_FETCH = ("""\
+      fetch_raw<G, PRE, ROLE>(p, ahead, raw + slot * G::kRawBytes + kBase,
+                              pt);
+""", "")
+# Conditions that are false at run time keep the code compiled.
+_GENERAL_COMBINE = ("for (int h = 0; h < 2; ++h) {",
+                    "for (int h = 0; h < (p.tile < 0 ? 2 : 0); ++h) {")
+_GENERAL_EPILOGUE = ("for (int q = ct; q < G::kSA * G::kSB; q += kConsumers) {",
+                     "for (int q = ct; q < (p.tile < 0 ? 1 : 0); "
+                     "q += kConsumers) {")
+GENERAL_PACE_VARIANTS = {
+    "p5": (_GENERAL_P5,),
+    # One-atom stages (twice the stages); computes the same bits.
+    "1-atom": (_GENERAL_P5, ("constexpr int kMaxHalves = 2;",
+                             "constexpr int kMaxHalves = 1;")),
+    # Two-atom bf16 stages stored in one chunk order in both halves (2-way
+    # shared-memory bank conflicts on every build store); the same bits.
+    "no-swap": (_GENERAL_P5, (
+        "static constexpr bool kSwapOdd = kBf16 && H > 1;",
+        "static constexpr bool kSwapOdd = false;")),
+    "no-finalize": (_GENERAL_P5, _GENERAL_EPILOGUE),
+    "no-combine": (_GENERAL_P5, _GENERAL_COMBINE, _GENERAL_EPILOGUE),
+    "no-mma": (_GENERAL_P5, _GENERAL_MMA, _GENERAL_COMBINE,
+               _GENERAL_EPILOGUE),
+    "no-build": (_GENERAL_P5, _GENERAL_BUILD, _GENERAL_COMBINE,
+                 _GENERAL_EPILOGUE),
+    "no-fetch": (_GENERAL_P5, _GENERAL_FETCH, _GENERAL_COMBINE,
+                 _GENERAL_EPILOGUE),
+    "ring-only": (_GENERAL_P5, _GENERAL_MMA, _GENERAL_BUILD, _GENERAL_FETCH,
+                  _GENERAL_COMBINE, _GENERAL_EPILOGUE),
+}
+
+
+def phase_gpace() -> None:
+    """Not in the default run: what sets the pace of the general body.  Each
+    variant of ``GENERAL_PACE_VARIANTS`` (built for P = 5 alone; those past
+    ``p5`` drop parts of the work and compute nothing meaningful) is
+    compiled beside the committed body (one nvcc each, started together)
+    and timed through the wrapper on the 528-tile plan at P = 5, in turns:
+    committed, variants, variants reversed, committed."""
+    import torch
+
+    from weightedld_tpu_torch.ops import _build
+    from weightedld_tpu_torch.ops import cuda_general as G
+
+    dev = torch.device("cuda")
+    libs = _variant_libs("ld_general.cu", GENERAL_PACE_VARIANTS,
+                         ("ld_general", "ld_general_unit"), "gpace")
+    base = libs["committed"]
+    order = [*libs, *reversed(libs)]
+    try:
+        for wq, pre in (("int8x3", False), ("int8x3", True),
+                        ("lo_int8", False), ("unit", False),
+                        ("exact", False)):
+            codes, wr, ti, tj, em, kw = _general_case_inputs(
+                31, (0, 1, 2, 3, 4), N_HEAD, S_TIMED, 256, 1024, wq, 0.0,
+                None, dev, dirty_sites=S_TIMED // 100)
+            em = torch.ones_like(em)
+            srcs = G.build_planes_tiled(codes, tile=256, planes=kw["planes"]) \
+                if pre else codes
+            ms = {name: [] for name in libs}
+            for name in order:
+                _build._lib = libs[name]
+                t, _stats = _time_cuda(lambda: G.tile_stats_general(
+                    srcs, wr, ti, tj, em, preplaned=pre, **kw), 5)
+                ms[name].append(round(t, 3))
+            log(f"[gpace] {wq} {'planes' if pre else 'codes'}: ms per launch "
+                f"of 528 tiles {ms} | {card_line()}")
+    finally:
+        _build._lib = base
+
+
 DEFAULT_PHASES = ("build", "kernels", "main", "cpu-vs-card", "analytics",
                   "ambiguous")
 
@@ -1851,8 +2116,8 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of build, kernels, main, "
                     "cpu-vs-card, analytics, ambiguous, profile, entries, "
-                    "pace and yardstick (default: the first six, which "
-                    "the result line needs)")
+                    "pace, general, gpace and yardstick (default: the "
+                    "first six, which the result line needs)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -1919,6 +2184,10 @@ def main() -> int:
             phase_profile()
         if "entries" in phases:
             phase_entries()
+        if "general" in phases:
+            phase_general()
+        if "gpace" in phases:
+            phase_gpace()
         if "pace" in phases:
             phase_pace()
         if "yardstick" in phases and "kernels" not in phases:
@@ -1933,8 +2202,9 @@ def main() -> int:
         f"--unweighted CLI run; the lo_int8 variants from the headline "
         f"lo_int8 --stats-only CLI run (planes) and codes-entry run, the "
         f"ambiguous lo_int8 CLI run (ld_general) and its preplaned "
-        f"kernel='general' lo_int8 run; the split_bf16 and bf16-exact "
-        f"variants from the headline summarize runs of each entry: "
+        f"kernel='general' lo_int8 run; the factorized split_bf16 and "
+        f"bf16-exact variants from the headline summarize runs of each "
+        f"entry, the general ones from the ambiguous kernel='general' runs: "
         f"{launches}")
     missing = [name for name in KERNELS if not launches.get(name)]
     if missing:

@@ -298,7 +298,11 @@ GENERAL_CASES = {
 
 
 def _general_inputs(name: str, device):
-    seed, alphabet, n, s, tile, chunk, mode, unk, planes = GENERAL_CASES[name]
+    return _general_case(*GENERAL_CASES[name], device)
+
+
+def _general_case(seed, alphabet, n, s, tile, chunk, mode, unk, planes,
+                  device):
     rng = np.random.default_rng(seed)
     aln = rng.choice(alphabet, size=(n, s)).astype(np.int8)
     aln[rng.random(aln.shape) < unk] = 5
@@ -334,8 +338,8 @@ def test_general_kernel_matches_plain_on_card(cuda_device, name, entry):
         kernel = "ld_general_planes"
     else:
         kernel = "ld_general_unit" if kw["unit_weights"] else "ld_general"
-    if kw["wquant"] == "lo_int8":
-        kernel += "_lo_int8"
+    kernel = K.launch_name(kernel, K.weight_kind(
+        kw["exact_weights"], kw["unit_weights"], kw["wquant"]))
     before = dict(G.launches)
     got = G.tile_stats_general(src, wr, ti, tj, em, preplaned=entry == "pre",
                                **kw)
@@ -344,6 +348,83 @@ def test_general_kernel_matches_plain_on_card(cuda_device, name, entry):
     torch.cuda.synchronize()
     assert G.launches[kernel] == before[kernel] + 1
     _assert_match(got, ref)
+
+
+# The tensor-core body at its edges, in every weight mode and both entries.
+# id -> (seed, alphabet, n_seqs, n_sites, tile, seq_chunk, UNKNOWN cell
+# fraction, planes): P = 2..5 (blocks of 128 / P A sites x 8-96 B sites);
+# T = 512 and tiles below a block; seq chunks that are not multiples of 16
+# (4-byte staging, partial stages); N = 3,000 in three chunks; a restricted
+# planes tuple.
+GENERAL_EDGE_CASES = {
+    "p2-t512-c200": (51, (0, 1), 200, 600, 512, 200, 0.03, None),
+    "p3-t96-c40": (52, (0, 1, 2), 150, 300, 96, 40, 0.05, None),
+    "p4-n3000": (53, (0, 1, 2, 4), 3000, 300, 96, 1024, 0.02, None),
+    "p5-t512-c200": (54, (0, 1, 2, 3, 4), 200, 600, 512, 200, 0.01, None),
+    "restricted-t48": (55, (0, 1, 2, 3, 4), 150, 300, 48, 120, 0.05,
+                       (1, 3, 4)),
+    "p5-n3000": (56, (0, 1, 2, 3, 4), 3000, 300, 96, 1024, 0.02, None),
+}
+
+
+# Bit for bit in every mode but split_bf16: the integer modes always, and
+# lo_int8's and bf16-exact's weights here keep every f32 partial sum exact
+# (the note at the top of csrc/ld_general.cu).
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["codes", "pre"])
+@pytest.mark.parametrize("mode", ["unit", "int8", "int8x3", "exact",
+                                  "split_bf16", "lo_int8"])
+@pytest.mark.parametrize("name", list(GENERAL_EDGE_CASES))
+def test_general_wgmma_body_bit_equal_on_card(cuda_device, name, mode,
+                                              entry):
+    seed, alphabet, n, s, tile, chunk, unk, planes = GENERAL_EDGE_CASES[name]
+    codes, wr, ti, tj, em, kw = _general_case(seed, alphabet, n, s, tile,
+                                              chunk, mode, unk, planes,
+                                              cuda_device)
+    src = codes
+    if entry == "pre":
+        src = G.build_planes_tiled(codes, tile=tile, planes=kw["planes"])
+    got = G.tile_stats_general(src, wr, ti, tj, em, preplaned=entry == "pre",
+                               **kw)
+    ref = G.tile_stats_general_plain(src, wr, ti, tj, em,
+                                     preplaned=entry == "pre", **kw)
+    torch.cuda.synchronize()
+    keep = ref.keep.cpu()
+    assert torch.equal(got.keep.cpu(), keep)
+    assert keep.any()
+    tol = (RTOL, ATOL) if mode == "split_bf16" else (0, 0)
+    for f in ("d", "d_prime", "r2"):
+        torch.testing.assert_close(getattr(got, f).cpu()[keep],
+                                   getattr(ref, f).cpu()[keep], rtol=tol[0],
+                                   atol=tol[1], equal_nan=True, msg=f)
+
+
+# dispatch builds one body for P = 1..5 in six modes and refuses the rest
+# with cudaErrorInvalidValue (1) before anything runs; the unit entry
+# ignores nlev and nflt, so only P refuses there.
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,nlev,nflt,n_planes", [
+    ("ld_general", 0, 3, 5), ("ld_general", 2, 1, 5),
+    ("ld_general", 4, 0, 5), ("ld_general", 0, 0, 5),
+    ("ld_general", 3, 0, 0), ("ld_general", 3, 0, 6),
+    ("ld_general_unit", 3, 0, 0), ("ld_general_unit", 3, 0, 6)])
+def test_general_unbuilt_mode_is_refused(cuda_device, entry, nlev, nflt,
+                                         n_planes):
+    from weightedld_tpu_torch.ops._build import load_library
+
+    codes, wr, ti, tj, em, kw = _general_inputs("dna5-int8x3", cuda_device)
+    k, t = ti.shape[0], kw["tile"]
+    out = torch.empty((k, t, t), device=cuda_device)
+    keep = torch.empty((k, t, t), dtype=torch.int8, device=cuda_device)
+    s_pad, n_pad = codes.shape
+    rc = getattr(load_library(), entry)(
+        codes.data_ptr(), 0, wr.data_ptr(), wr.data_ptr(), wr.data_ptr(),
+        ti.data_ptr(), tj.data_ptr(), em.data_ptr(), out.data_ptr(),
+        out.data_ptr(), out.data_ptr(), keep.data_ptr(), k, t,
+        kw["n_sites"], s_pad, n_pad, kw["seq_chunk"], nlev, nflt, n_planes,
+        sum(c << (3 * i) for i, c in enumerate(kw["planes"])),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 1
 
 
 def _scattered_alignment(rng, n_seqs, n_sites, n_dirty):

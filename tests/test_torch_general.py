@@ -258,7 +258,8 @@ def test_cpu_wrapper_launches_nothing():
     c, t = _cpu_args("snp3-unit")
     G.tile_stats_general(t["codes"], t["weights"], t["tile_i"], t["tile_j"],
                          t["emit"], **c["kw"])
-    assert set(G.launches) == {"ld_general", "ld_general_unit",
-                               "ld_general_planes", "ld_general_lo_int8",
-                               "ld_general_planes_lo_int8"}
+    assert set(G.launches) == {
+        entry + suffix for entry in ("ld_general", "ld_general_planes")
+        for suffix in ("", "_lo_int8", "_split_bf16", "_bf16_exact")} | {
+        "ld_general_unit"}
     assert not any(G.launches.values())

@@ -25,8 +25,15 @@ remaining counts (``WeightedLD.py:183-211``):
 (``ld_general``, ``ld_general_unit``, or ``ld_general_planes`` for the
 preplaned operands of :func:`build_planes_tiled`) and runs
 :func:`tile_stats_general_plain` for CPU tensors; any other device raises.
-Each launch adds one to ``launches[<kernel name>]``.  Weight layouts are
-those of :mod:`.cuda_ld`.
+The kernel contracts the whole P x P joint of every weight pass on the
+tensor cores, plus a unit pass whose marginals are the counts, and selects
+the four cells per pair afterwards (the note at the top of the source); the
+float passes reach it as bf16 bits (:func:`.cuda_ld.float_pass_bits`).
+Each launch adds one to ``launches[<kernel name>]``, the float weight modes
+under names of their own (``ld_general_lo_int8``,
+``ld_general_split_bf16``, ``ld_general_bf16_exact`` and their
+``ld_general_planes_*`` twins).  Weight layouts are those of
+:mod:`.cuda_ld`.
 """
 
 from __future__ import annotations
@@ -42,17 +49,21 @@ from .cuda_ld import (
     _a_operands,
     _check,
     _check_common,
-    _float_rows,
     _q_levels,
     _tile_rows,
     _weight_mode,
     finalize_cells,
+    float_pass_bits,
+    launch_name,
 )
 
-# Launch counts per kernel entry point, the lo_int8 variants under their own
-# names: the wrapper adds one where it launches a kernel and nowhere else.
-launches = {"ld_general": 0, "ld_general_unit": 0, "ld_general_planes": 0,
-            "ld_general_lo_int8": 0, "ld_general_planes_lo_int8": 0}
+# Launch counts per kernel entry point, the float weight modes (lo_int8,
+# split_bf16, bf16-exact) under names of their own (``launch_name``): the
+# wrapper adds one where it launches a kernel and nowhere else.
+launches = {**{launch_name(entry, kind): 0
+               for entry in ("ld_general", "ld_general_planes")
+               for kind in ("int", "lo", "split", "exact")},
+            "ld_general_unit": 0}
 
 
 def reset_launches() -> None:
@@ -169,17 +180,18 @@ def _launch(name: str, entry: str, codes, planes_src, weights, tile_i,
 
     dev = weights.device
     k = tile_i.shape[0]
-    q = scale = wf = None
+    q = scale = wb = None
     nflt = 0
     if kind == "int":
         q = _q_levels(weights, kind, nlev)
         scale = weights[nlev:2 * nlev, 0].contiguous()
     elif kind == "lo":
-        q = _q_levels(weights, kind, nlev)
         scale = weights[2:3, 0].contiguous()
     if kind in ("exact", "split", "lo"):
-        wf = torch.stack(_float_rows(weights, kind)).contiguous()
-        nflt = wf.shape[0]
+        # The bf16 bits of the float passes (lo_int8: w_hi, then its
+        # residual level q, exact in bf16).
+        wb = float_pass_bits(weights, kind)
+        nflt = wb.shape[0] - nlev
     ptr = lambda t: 0 if t is None else t.data_ptr()
     packed = sum(c << (3 * s) for s, c in enumerate(planes))
     d = torch.empty((k, tile, tile), dtype=torch.float32, device=dev)
@@ -190,7 +202,7 @@ def _launch(name: str, entry: str, codes, planes_src, weights, tile_i,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, entry)(
-            ptr(codes), ptr(planes_src), ptr(q), ptr(scale), ptr(wf),
+            ptr(codes), ptr(planes_src), ptr(q), ptr(scale), ptr(wb),
             tile_i.data_ptr(), tile_j.data_ptr(), emit.data_ptr(),
             d.data_ptr(), dp.data_ptr(), r2.data_ptr(), keep.data_ptr(),
             k, tile, n_sites, s_pad, n_pad, seq_chunk, nlev, nflt,
@@ -198,7 +210,7 @@ def _launch(name: str, entry: str, codes, planes_src, weights, tile_i,
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed with CUDA error {rc}")
     if k > 0:
-        launches[name + ("_lo_int8" if kind == "lo" else "")] += 1
+        launches[launch_name(name, kind)] += 1
     return PairStats(d=d, d_prime=dp, r2=r2, keep=keep.view(torch.bool))
 
 
