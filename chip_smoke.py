@@ -8,7 +8,8 @@ result line):
 
 1. build   — print the card's name and power limit, build every
              ``weightedld_tpu_torch/csrc/*.cu`` for sm_90a (one nvcc per
-             source, all started together).
+             source, all started together) and, beside them, the native
+             io library from ``native/wldio.cpp`` (g++).
 2. kernels — each kernel entry point against its plain PyTorch version on
              the card: the factorized entries on random no-UNKNOWN
              alignments, the general entries (codes and preplaned, weighted
@@ -92,6 +93,26 @@ result line):
              session and of its lo_int8 twin, and batch 0 of the
              ``kernel="general"`` session, of its unit twin and of its
              preplaned lo_int8 twin.
+7. ingest  — the ingest front: the native io library loaded (where the
+             host lacks zlib's header, a ``native_io unavailable: ...``
+             line and the Python readers throughout); the native and
+             Python readers give equal arrays on the headline VCF; the
+             headline CLI with the Python reader (``WLD_NATIVE_IO=0``),
+             the native reader and ``--stream-ingest`` writes the same
+             TSV bytes, each launching ``ld_majmin_planes``, with every
+             stage time; ``session_from_vcf(weight_precision="f32")`` on
+             the card: weights within rtol 1e-6 of the host f64 weights,
+             every planted pair; ``henikoff_weights_site_major`` timed on
+             the headline's codes; the ambiguous FASTA through
+             ``--stream-ingest``: the default run's TSV bytes, with
+             ``ld_general``; a 1000 Genomes-sized cohort (5,008
+             haplotypes x 49,152 sites of the loaded distribution, 3,400
+             planted triplets, a ~490 MB VCF) through the default CLI:
+             the native reader, ``henikoff_weights_large`` on the card
+             (246 M cells > 200 M), the native transpose and
+             ``ld_majmin_planes``, every planted pair, its weights within
+             rtol 1e-5 of ``henikoff_weights_host_site_major``.  Every
+             stage is printed with the card and the host's core count.
 
 Not in the default run: ``--phases profile`` times the headline
 session's ``stream`` and ``summarize`` scans interleaved, one batch's
@@ -164,6 +185,9 @@ ENTRY_MODES = ("none", "lo_int8", "split_bf16")
 # The ambiguous cell: sequences x columns, ambiguous columns, planted
 # triplets, and the columns of its CPU-vs-card slice.
 N_AMB, S_AMB, N_DIRTY, N_AMB_GROUPS = 1024, 16384, 164, 300
+# The ingest phase's cohort: the 2,504 samples of 1000 Genomes phase 3 as
+# phased diploid haplotypes, over the headline's 49,152 sites.
+N_COHORT, S_COHORT = 5008, 49152
 AMB_SLICE = 4096
 
 # name -> (TPU kernel it replaces, source)
@@ -294,11 +318,30 @@ def ptxas_report(text: str) -> list[str]:
 
 
 def phase_build() -> None:
+    import threading
+    import warnings
+
+    from weightedld_tpu_torch.io import native
     from weightedld_tpu_torch.ops import _build
 
     log(f"[build] card: {card_line()}")
     t0 = time.monotonic()
+    # g++ builds the native io library while nvcc builds the kernels.
+    t_native = {}
+
+    def build_native():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # reported by the ingest phase
+            native.load()
+        t_native["s"] = time.monotonic() - t0
+
+    th = threading.Thread(target=build_native)
+    th.start()
     _build.load_library()
+    th.join()
+    log(f"[build] native io library: "
+        f"{native.library_path().name if native.available() else 'unavailable'}"
+        f" in {t_native['s']:.2f}s (g++, beside nvcc)")
     info = _build.build_info
     log(f"[build] {[p.name for p in info.paths]}: compiled "
         f"{info.compiled} in parallel, nvcc {info.seconds:.2f}s, build + "
@@ -894,6 +937,23 @@ def write_vcf(path: Path, aln: np.ndarray) -> None:
             fh.write(rows[i].tobytes())
 
 
+def headline_vcf(tmp: Path, tag: str = "main") -> tuple[Path, np.ndarray,
+                                                       np.ndarray]:
+    """The headline VCF (1,000 haplotypes x 49,152 sites, seed 2024),
+    written into ``tmp`` unless it is there: ``(path, alignment, planted
+    triplets)``."""
+    rng = np.random.default_rng(2024)
+    t0 = time.monotonic()
+    aln, seeds = loaded_alignment(rng, N_HEAD, S_HEAD, N_TRIPLETS)
+    vcf = tmp / "headline.vcf"
+    if not vcf.exists():
+        write_vcf(vcf, aln)
+        log(f"[{tag}] synthetic VCF {N_HEAD} x {S_HEAD}: "
+            f"{vcf.stat().st_size / 1e6:.1f} MB in "
+            f"{time.monotonic() - t0:.1f}s")
+    return vcf, aln, seeds
+
+
 def read_pairs(path: Path) -> list[tuple[int, int]]:
     out = []
     with open(path) as fh:
@@ -940,13 +1000,7 @@ def phase_main(tmp: Path) -> tuple[dict, dict]:
     from weightedld_tpu_torch.runtime.driver import DriverConfig, run_to_tsv
     from weightedld_tpu_torch.runtime.profiling import StageTimer
 
-    rng = np.random.default_rng(2024)
-    t0 = time.monotonic()
-    aln, seeds = loaded_alignment(rng, N_HEAD, S_HEAD, N_TRIPLETS)
-    vcf = tmp / "headline.vcf"
-    write_vcf(vcf, aln)
-    log(f"[main] synthetic VCF {N_HEAD} x {S_HEAD}: "
-        f"{vcf.stat().st_size / 1e6:.1f} MB in {time.monotonic() - t0:.1f}s")
+    vcf, aln, seeds = headline_vcf(tmp)
     out = tmp / "headline.tsv"
     timer = StageTimer()
     t0 = time.monotonic()
@@ -1432,6 +1486,24 @@ def planted_pairs(trips, offset: int = 0) -> set:
     return out
 
 
+def ambiguous_fasta(tmp: Path, tag: str = "ambiguous"):
+    """The ``ambiguous`` FASTA (1,024 x 16,384, seed 2026), written into
+    ``tmp`` unless it is there: ``(path, codes, triplets, dirty
+    columns)``."""
+    rng = np.random.default_rng(2026)
+    t0 = time.monotonic()
+    aln, trips, dirty = ambiguous_alignment(rng, N_AMB, S_AMB, N_AMB_GROUPS,
+                                            N_DIRTY)
+    fasta = tmp / "ambiguous.fasta"
+    if not fasta.exists():
+        write_fasta_codes(fasta, aln, rng)
+        log(f"[{tag}] synthetic FASTA {N_AMB} x {S_AMB}, {len(dirty)} "
+            f"ambiguous columns, {len(trips)} planted triplets: "
+            f"{fasta.stat().st_size / 1e6:.1f} MB in "
+            f"{time.monotonic() - t0:.1f}s")
+    return fasta, aln, trips, dirty
+
+
 def phase_ambiguous(tmp: Path) -> tuple[dict, dict]:
     """The ambiguity-code path at full size; returns the main-path launch
     counts of the general entries and the max abs errors of the batch
@@ -1441,15 +1513,7 @@ def phase_ambiguous(tmp: Path) -> tuple[dict, dict]:
                                                      run_to_tsv)
     from weightedld_tpu_torch.runtime.profiling import StageTimer
 
-    rng = np.random.default_rng(2026)
-    t0 = time.monotonic()
-    aln, trips, dirty = ambiguous_alignment(rng, N_AMB, S_AMB, N_AMB_GROUPS,
-                                            N_DIRTY)
-    fasta = tmp / "ambiguous.fasta"
-    write_fasta_codes(fasta, aln, rng)
-    log(f"[ambiguous] synthetic FASTA {N_AMB} x {S_AMB}, {len(dirty)} "
-        f"ambiguous columns, {len(trips)} planted triplets: "
-        f"{fasta.stat().st_size / 1e6:.1f} MB in {time.monotonic() - t0:.1f}s")
+    fasta, aln, trips, dirty = ambiguous_fasta(tmp)
     planted = planted_pairs(trips)
     launches, err = {}, {}
 
@@ -1675,6 +1739,248 @@ def phase_ambiguous(tmp: Path) -> tuple[dict, dict]:
         err[name] = max(err.get(name, 0.0), e)
         del sess
     return launches, err
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: ingest (native reader, streaming sessions, device Henikoff)
+# ---------------------------------------------------------------------------
+
+
+def _native_status() -> bool:
+    """Whether the native io library loaded.  Where it cannot be built
+    because the host lacks zlib's header, say so on a line of its own and
+    go on with the Python readers; any other failure raises."""
+    from weightedld_tpu_torch.io import native
+
+    if native.available():
+        log(f"[ingest] native io library loaded: "
+            f"{native.library_path().name}")
+        return True
+    err = native.build_error() or "WLD_NATIVE_IO=0 in the environment"
+    lines = err.splitlines() or [err]
+    first = next((ln for ln in lines if "error" in ln), lines[0])
+    if "zlib.h" not in err:
+        raise AssertionError(f"native io library unavailable: {err}")
+    log(f"native_io unavailable: {first}")
+    return False
+
+
+def _stage_log(label: str, timer, wall: float) -> None:
+    for name, sec in timer.spans.items():
+        log(f"[ingest] {label}: stage {name:<12} {sec:.3f}s")
+    log(f"[ingest] {label}: cli wall {wall:.3f}s | host cores "
+        f"{os.cpu_count()} | {card_line()}")
+
+
+def _timed_cli(label: str, argv: list[str], python_io: bool = False):
+    """One CLI run with its stage times: ``(launch counts, wall)``;
+    ``python_io`` forces the Python readers and formatter."""
+    from weightedld_tpu_torch.runtime.profiling import StageTimer
+
+    old = os.environ.get("WLD_NATIVE_IO")
+    if python_io:
+        os.environ["WLD_NATIVE_IO"] = "0"
+    try:
+        timer = StageTimer()
+        t0 = time.monotonic()
+        counts = _drive(argv, timer=timer)
+        wall = time.monotonic() - t0
+    finally:
+        if python_io:
+            if old is None:
+                os.environ.pop("WLD_NATIVE_IO")
+            else:
+                os.environ["WLD_NATIVE_IO"] = old
+    _stage_log(label, timer, wall)
+    log(f"[ingest] {label}: kernel launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return counts, wall
+
+
+def _time_sync(fn, reps: int = 3) -> list[float]:
+    """Seconds of each of ``reps`` calls of ``fn``, the card synchronized
+    around each."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.monotonic() - t0)
+    return out
+
+
+def phase_ingest(tmp: Path) -> None:
+    """The ingest front: native against Python readers, the headline CLI
+    with each reader and with ``--stream-ingest``, a streamed f32 session,
+    the ambiguous FASTA streamed, and the 1000 Genomes-sized cohort."""
+    import torch
+
+    import weightedld_tpu_torch.pipeline as pipe
+    from weightedld_tpu_torch.core.henikoff import (
+        henikoff_weights_host_site_major, henikoff_weights_large,
+        henikoff_weights_site_major)
+    from weightedld_tpu_torch.io import native
+    from weightedld_tpu_torch.io.vcf import read_vcf_python
+    from weightedld_tpu_torch.ops.cuda_ld import pad_alignment_site_major
+    from weightedld_tpu_torch.runtime.driver import DriverConfig
+    from weightedld_tpu_torch.runtime.ingest import session_from_vcf
+
+    lib_ok = _native_status()
+    vcf, _aln, seeds = headline_vcf(tmp, "ingest")
+    planted = planted_pairs(seeds, offset=1)
+
+    # Readers on the headline VCF.
+    t0 = time.monotonic()
+    aln_py, pos_py = read_vcf_python(vcf)
+    t_py = time.monotonic() - t0
+    msg = f"python reader {t_py:.3f}s"
+    if lib_ok:
+        t0 = time.monotonic()
+        aln_n, pos_n = native.read_vcf_native(vcf)
+        t_n = time.monotonic() - t0
+        if not (np.array_equal(aln_n, aln_py)
+                and np.array_equal(pos_n, pos_py)):
+            raise AssertionError("native and Python VCF readers differ")
+        msg += f", native reader {t_n:.3f}s ({t_py / t_n:.2f}x), equal arrays"
+    log(f"[ingest] headline {vcf.stat().st_size / 1e6:.1f} MB VCF: {msg} | "
+        f"host cores {os.cpu_count()}")
+
+    # The headline CLI with each reader and streamed.
+    argv = ["--file", str(vcf), "--r2-threshold", "0.1"]
+    outs = {}
+    for label, extra, py in (("python reader", [], True),
+                             ("native reader", [], False),
+                             ("--stream-ingest", ["--stream-ingest"], False)):
+        out = tmp / f"ingest_{len(outs)}.tsv"
+        counts, _wall = _timed_cli(f"headline {label}",
+                                   argv + extra + ["--pair-output", str(out)],
+                                   python_io=py)
+        if not counts["ld_majmin_planes"]:
+            raise AssertionError(f"headline {label} never launched "
+                                 "ld_majmin_planes")
+        outs[label] = out.read_bytes()
+    if len(set(outs.values())) != 1:
+        raise AssertionError(f"headline TSVs differ between "
+                             f"{list(outs)}")
+    got = set(read_pairs(tmp / "ingest_0.tsv"))
+    if planted - got:
+        raise AssertionError("headline planted pairs missing")
+    log(f"[ingest] headline TSVs byte-identical across {list(outs)} "
+        f"({len(outs['native reader'])} bytes, all {len(planted)} planted "
+        f"pairs)")
+
+    # A streamed session with f32 Henikoff weights on the card.
+    host_w = pipe.prepare(vcf).weights
+    t0 = time.monotonic()
+    sess = session_from_vcf(vcf, DriverConfig(r2_threshold=0.1),
+                            device="cuda", weight_precision="f32")
+    t_sess = time.monotonic() - t0
+    rel = float(np.max(np.abs(sess.weights - host_w) / np.abs(host_w)))
+    if not np.allclose(sess.weights, host_w, rtol=1e-6, atol=0.0):
+        raise AssertionError(f"f32 session weights off the host f64 "
+                             f"weights: max rel err {rel:.3g}")
+    recs, counts = _counted(lambda: [r for _b, r in sess.stream()])
+    pairs = {(int(a), int(b)) for r in recs
+             for a, b in zip(r.pos_a, r.pos_b)}
+    if not counts["ld_majmin_planes"] or planted - pairs:
+        raise AssertionError(f"f32 session: launches {counts}, "
+                             f"{len(planted - pairs)} planted pairs missing")
+    log(f"[ingest] session_from_vcf(weight_precision='f32'): built in "
+        f"{t_sess:.3f}s (two streaming passes, device Henikoff, upload), "
+        f"weights max rel err {rel:.3g} vs host f64 (rtol 1e-6), "
+        f"{len(pairs)} records, all planted pairs, ld_majmin_planes "
+        f"x{counts['ld_majmin_planes']}")
+    del sess
+    codes = torch.from_numpy(pad_alignment_site_major(
+        aln_py, 256, 1024)).cuda()
+    t_hk = _time_sync(lambda: henikoff_weights_site_major(codes, N_HEAD))
+    log(f"[ingest] henikoff_weights_site_major on the card, [{codes.shape[0]}"
+        f", {codes.shape[1]}] int8: {[round(t, 6) for t in t_hk]} s | "
+        f"{card_line()}")
+    del codes, aln_py
+
+    # The ambiguous FASTA: default run against --stream-ingest.
+    fasta, _a, _t, _d = ambiguous_fasta(tmp, "ingest")
+    argv = ["--file", str(fasta), "--r2-threshold", "0.1", "--ndigits", "8"]
+    amb = {}
+    for label, extra in (("default", []),
+                         ("--stream-ingest", ["--stream-ingest"])):
+        out = tmp / f"ingest_amb_{len(amb)}.tsv"
+        counts, _wall = _timed_cli(f"ambiguous {label}",
+                                   argv + extra + ["--pair-output", str(out)])
+        if not counts["ld_general"]:
+            raise AssertionError(f"ambiguous {label} never launched "
+                                 "ld_general")
+        amb[label] = out.read_bytes()
+    if amb["default"] != amb["--stream-ingest"]:
+        raise AssertionError("ambiguous --stream-ingest TSV differs from "
+                             "the default run's")
+    log(f"[ingest] ambiguous --stream-ingest TSV byte-identical to the "
+        f"default run's ({len(amb['default'])} bytes)")
+
+    # The 1000 Genomes-sized cohort through the default CLI.
+    rng = np.random.default_rng(2504)
+    t0 = time.monotonic()
+    aln, seeds = loaded_alignment(rng, N_COHORT, S_COHORT, N_TRIPLETS)
+    cvcf = tmp / "cohort.vcf"
+    write_vcf(cvcf, aln)
+    del aln
+    log(f"[ingest] cohort VCF {N_COHORT} x {S_COHORT} "
+        f"({N_COHORT * S_COHORT / 1e6:.1f}M cells): "
+        f"{cvcf.stat().st_size / 1e6:.1f} MB in "
+        f"{time.monotonic() - t0:.1f}s")
+    seen = {}
+    real = pipe.henikoff_weights_large
+
+    def spy(alignment, **kw):
+        seen["aln"] = alignment
+        seen["w"] = real(alignment, **kw)
+        return seen["w"]
+
+    pipe.henikoff_weights_large = spy
+    out = tmp / "cohort.tsv"
+    try:
+        counts, _wall = _timed_cli("cohort", [
+            "--file", str(cvcf), "--r2-threshold", "0.1", "--pair-output",
+            str(out)])
+    finally:
+        pipe.henikoff_weights_large = real
+    if "w" not in seen or seen["w"].device.type != "cuda":
+        raise AssertionError("the cohort was not weighted on the card")
+    if not counts["ld_majmin_planes"]:
+        raise AssertionError("the cohort never launched ld_majmin_planes")
+    got = set(read_pairs(out))
+    missing = planted_pairs(seeds, offset=1) - got
+    if missing:
+        raise AssertionError(f"cohort: {len(missing)} planted pairs "
+                             f"missing, e.g. {sorted(missing)[:5]}")
+    aln = seen.pop("aln")
+    w32 = seen.pop("w").cpu().numpy()
+    t0 = time.monotonic()
+    sm = pad_alignment_site_major(aln, 256, 64)
+    w64 = henikoff_weights_host_site_major(sm, S_COHORT, N_COHORT)
+    t_host = time.monotonic() - t0
+    del sm
+    rel = float(np.max(np.abs(w32 - w64) / np.abs(w64)))
+    if not np.allclose(w32, w64, rtol=1e-5, atol=0.0):
+        raise AssertionError(f"cohort card weights off the host f64 "
+                             f"weights: max rel err {rel:.3g}")
+    t_large = _time_sync(lambda: henikoff_weights_large(aln, device="cuda"))
+    log(f"[ingest] cohort: {len(got)} records, all planted pairs; card "
+        f"weights max rel err {rel:.3g} vs henikoff_weights_host_site_major "
+        f"(rtol 1e-5; host f64 {t_host:.3f}s); henikoff_weights_large on "
+        f"the card ({-(-S_COHORT // 16384)} chunks of 16,384 sites, H2D "
+        f"included) "
+        f"{[round(t, 6) for t in t_large]} s | host cores {os.cpu_count()} "
+        f"| {card_line()}")
+    log(f"[ingest] summary: native io "
+        f"{'loaded' if lib_ok else 'unavailable, Python readers throughout'}"
+        f"; headline python == native == --stream-ingest TSVs; f32 session "
+        f"and cohort weights within tolerance; ambiguous --stream-ingest == "
+        f"default")
 
 
 def _scan_seconds(sess) -> float:
@@ -2108,16 +2414,16 @@ def phase_gpace() -> None:
 
 
 DEFAULT_PHASES = ("build", "kernels", "main", "cpu-vs-card", "analytics",
-                  "ambiguous")
+                  "ambiguous", "ingest")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of build, kernels, main, "
-                    "cpu-vs-card, analytics, ambiguous, profile, entries, "
-                    "pace, general, gpace and yardstick (default: the "
-                    "first six, which the result line needs)")
+                    "cpu-vs-card, analytics, ambiguous, ingest, profile, "
+                    "entries, pace, general, gpace and yardstick (default: "
+                    "the first seven, which the result line needs)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -2180,6 +2486,10 @@ def main() -> int:
             for name, e in amb_err.items():
                 err[name] = max(err[name], e)
             done("ambiguous", t0)
+        if "ingest" in phases:
+            t0 = time.monotonic()
+            phase_ingest(tmp)
+            done("ingest", t0)
         if "profile" in phases:
             phase_profile()
         if "entries" in phases:

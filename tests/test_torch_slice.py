@@ -270,8 +270,11 @@ def test_port_imports_neither_jax_nor_triton():
             "weightedld_tpu_torch.ops.cuda_general, "
             "weightedld_tpu_torch.ops._build, "
             "weightedld_tpu_torch.pipeline, "
-            "weightedld_tpu_torch.runtime.driver; "
-            "bad = [m for m in ('jax', 'triton') if m in sys.modules]; "
+            "weightedld_tpu_torch.runtime.driver, "
+            "weightedld_tpu_torch.runtime.ingest, "
+            "weightedld_tpu_torch.io.native; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'triton', 'weightedld_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
                    cwd=REPO)
@@ -299,7 +302,7 @@ def test_cuda_default_without_card_is_an_error(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", ["--max-distance-bp", "--max-distance=10",
                                   "--checkpoint", "--devices",
-                                  "--cross-regions", "--stream-ingest",
+                                  "--cross-regions", "--sort",
                                   "--chrom", "--verbose"])
 def test_cli_flag_not_yet_ported(flag, capsys):
     assert cli.main(["--file", "x.vcf", "--device", "cpu", flag]) == 2
@@ -332,8 +335,15 @@ def test_session_raises_for_inputs_off_the_slice():
     assert sess.kernel_kw["wquant"] == "lo_int8"
     assert tuple(sess.weights_dev.shape) == (3, 64)
     assert sess.summarize()["n_pairs"] > 0
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        LdSession(clean, None, sm, DriverConfig(tile=32), device="cpu")
+    # weights=None is ported (on-device Henikoff); a site-major buffer that
+    # is not padded for the session's tile and seq chunk is refused.
+    from weightedld_tpu_torch.runtime.driver import SiteMajorCodes
+
+    codes = np.full((128, 64), 5, np.int8)     # one tile more than 96
+    codes[:70, :40] = clean.T
+    with pytest.raises(ValueError, match="required_padding"):
+        LdSession(SiteMajorCodes(codes=codes, n_seqs=40, n_sites=70), None,
+                  sm, DriverConfig(tile=32), device="cpu")
 
 
 def test_cli_large_input_and_lo_int8_exit_not_ported(tmp_path, monkeypatch,
@@ -348,6 +358,10 @@ def test_cli_large_input_and_lo_int8_exit_not_ported(tmp_path, monkeypatch,
     assert out.read_text() == _golden_tsv("t4")
     import weightedld_tpu_torch.pipeline as pipe
 
+    # Inputs over _LARGE_CELLS are ported: weighted on the device (here the
+    # CPU) in site chunks, with the golden records.
     monkeypatch.setattr(pipe, "_LARGE_CELLS", 10)
-    assert cli.main(["--file", str(path), "--device", "cpu"]) == 2
-    assert "henikoff_weights_large" in capsys.readouterr().err
+    out = tmp_path / "large.tsv"
+    assert cli.main(["--file", str(path), "--device", "cpu",
+                     "--pair-output", str(out)]) == 0
+    assert out.read_text() == _golden_tsv("t4")

@@ -2,16 +2,21 @@
 
     python -m weightedld_tpu_torch.cli --file X.vcf [--device cuda|cpu]
 
-The main-path dispatch of ``weightedld_tpu/cli.py``: ingest, masks and
-Henikoff weights on the host, then the dense engine (S <= 2048 by default)
-or the tiled session with the CUDA kernels, and the 4-dp TSV.  Both engines
-take any input, FASTA with ambiguity characters included: the tiled session
-runs the factorized kernel wherever it is exact and the general kernel on
-the tile pairs whose UNKNOWN codes it does not cover.
+The main-path dispatch of ``weightedld_tpu/cli.py``: ingest (the native
+reader when it is built), masks and Henikoff weights on the host (inputs
+over 200M cells are weighted on the device), then the dense engine (S <=
+2048 by default) or the tiled session with the CUDA kernels, and the 4-dp
+TSV.  ``--stream-ingest`` (``cli.py:226-236, 556-630``) reads the file in
+two passes straight into the session's padded site-major buffer, with
+chunked float64 host weights, and always runs the tiled session.  Both
+engines take any input, FASTA with ambiguity characters included: the tiled
+session runs the factorized kernel wherever it is exact and the general
+kernel on the tile pairs whose UNKNOWN codes it does not cover.
 Supported flags: ``--file``, ``--min-acgt``, ``--min-variability``,
 ``--unweighted``, ``--r2-threshold``, ``--pair-output``, ``--engine
 {auto,dense,tiled}``, ``--tile``, ``--seq-chunk``, ``--tiles-per-batch``,
-``--weight-quant``, ``--ndigits``, ``--weights-output``, the port's
+``--weight-quant``, ``--ndigits``, ``--weights-output``,
+``--stream-ingest``, the port's
 ``--device`` (default ``cuda``; no card is an error, never a silent CPU
 run), and the analytics output modes of ``weightedld_tpu/cli.py:857-1058``,
 one per run: ``--stats-only`` (JSON summary), ``--top K``, ``--ld-decay
@@ -49,7 +54,6 @@ NOT_PORTED = {
                      "--list-chroms", "--sort", "--progress",
                      "--progress-bar"),
                     "queue 1 item 10 (full CLI parity)"),
-    "--stream-ingest": "queue 1 item 11 (streaming ingest)",
     **dict.fromkeys(("--checkpoint", "--profile-dir"),
                     "queue 1 item 12 (checkpoint, profiling)"),
     **dict.fromkeys(("--devices", "--coordinator", "--num-processes",
@@ -137,6 +141,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="emit only the K strongest surviving pairs by r2 "
                    "(descending), threshold-free; the tiled engine selects "
                    "on the device, O(K) host traffic per batch")
+    p.add_argument("--stream-ingest", action="store_true",
+                   help="two-pass streaming ingest straight into the "
+                   "session's padded site-major layout (VCF, or FASTA): "
+                   "peak host memory is one padded matrix.  Records equal "
+                   "the default readers'; Henikoff weights run chunked in "
+                   "f64 (equal to the default's up to summation order, ~1 "
+                   "ulp).  Runs the tiled engine")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default; fails without a "
                    "card) or cpu (the kernels' plain PyTorch versions)")
@@ -206,6 +217,34 @@ def _empty_mode_output(args, res, n: int, s: int) -> int:
     return 0
 
 
+def _prepare_streamed(args, timer):
+    """The ``--stream-ingest`` preparation: ``(SiteMajorCodes, site_map,
+    weights)`` as a ``PipelineResult``, the buffer sized for the session
+    the output mode builds (the same ``--tile`` / ``--seq-chunk``)."""
+    from .core.henikoff import henikoff_weights_host_site_major
+    from .pipeline import PipelineResult
+    from .runtime.driver import DriverConfig
+    from .runtime.ingest import prepare_fasta_streamed, prepare_vcf_streamed
+
+    stream_cfg = DriverConfig(tile=args.tile, seq_chunk=args.seq_chunk)
+    hk_mask = ld_mask = None
+    with timer.stage("ingest"):
+        if str(args.file).endswith((".vcf", ".vcf.gz")):
+            sm, site_map = prepare_vcf_streamed(args.file, stream_cfg)
+        else:
+            sm, site_map, hk_mask, ld_mask = prepare_fasta_streamed(
+                args.file, min_acgt=args.min_acgt,
+                min_variability=args.min_variability, cfg=stream_cfg)
+    with timer.stage("weights"):
+        if args.unweighted:
+            weights = np.ones(sm.n_seqs, dtype=np.float32)
+        else:
+            weights = henikoff_weights_host_site_major(
+                sm.codes, sm.n_sites, sm.n_seqs)
+    return PipelineResult(alignment=sm, site_map=site_map, weights=weights,
+                          hk_mask=hk_mask, ld_mask=ld_mask)
+
+
 def main(argv=None, timer=None) -> int:
     """CLI entry point; ``timer`` (a ``runtime.profiling.StageTimer``)
     collects the per-stage spans."""
@@ -255,20 +294,28 @@ def main(argv=None, timer=None) -> int:
     if args.file is None:
         print("error: --file is required", file=sys.stderr)
         return 2
+    if args.stream_ingest and args.engine == "dense":
+        print(f"error: --stream-ingest requires the tiled engine "
+              f"(--engine {args.engine} holds the matrix in sequence-"
+              "major form)", file=sys.stderr)
+        return 2
     cfg = WldConfig(min_acgt=args.min_acgt,
                     min_variability=args.min_variability,
                     unweighted=args.unweighted,
                     r2_threshold=args.r2_threshold)
     t0 = time.monotonic()
     try:
-        res = prepare(args.file, cfg, timer=timer)
-    except NotImplementedError as e:
-        print(f"error: not yet ported: {e}", file=sys.stderr)
-        return 2
+        if args.stream_ingest:
+            res = _prepare_streamed(args, timer)
+        else:
+            res = prepare(args.file, cfg, timer=timer, device=device)
     except (ValueError, OSError) as e:   # VcfError, ragged FASTA, missing
         print(f"error: {e}", file=sys.stderr)
         return 2
-    n, s = res.alignment.shape
+    if args.stream_ingest:
+        n, s = res.alignment.n_seqs, res.alignment.n_sites
+    else:
+        n, s = res.alignment.shape
 
     if args.weights_output:
         with open_text_output(args.weights_output) as fh:
@@ -288,6 +335,8 @@ def main(argv=None, timer=None) -> int:
     engine = args.engine
     if engine == "auto":
         engine = "dense" if s <= 2048 else "tiled"
+    if args.stream_ingest:
+        engine = "tiled"   # the buffer is laid out for the tiled session
     if args.weight_quant != "none" and engine != "tiled" \
             and args.matrix_output is None:
         print(f"warning: --weight-quant only applies to the tiled engine; "

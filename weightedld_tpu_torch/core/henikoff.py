@@ -1,22 +1,35 @@
-"""Henikoff position-based sequence weighting on the host, in float64.
+"""Henikoff position-based sequence weighting: float64 on the host, and
+torch on a device.
 
-Copy of ``henikoff_weights_host`` from
-``weightedld_tpu/core/henikoff.py:69-117``, bit-equal to it and to the
-executed reference's ``henikoff_weighting`` (``WeightedLD.py:101-151``):
-every step runs in float64 with the reference's operand grouping, including
-its quirk that ``unique_base`` is the number of unique ROWS of the 5 x S
-count matrix (one global scalar that cancels under max-normalization but
-takes part in each rounding).  Ambiguous cells (code 5) take the site's
-mean contribution; a site with no concrete allele imputes 0 instead of the
-reference's 0/0 NaN.  The weights are max-normalized.
+Copies from ``weightedld_tpu/core/henikoff.py``:
 
-The chunked ``henikoff_weights_large`` path (inputs over 200M cells) is not
-ported; ``pipeline`` refuses such inputs.
+* ``henikoff_weights_host`` (``:69-117``): bit-equal to it and to the
+  executed reference's ``henikoff_weighting`` (``WeightedLD.py:101-151``):
+  every step in float64 with the reference's operand grouping, including
+  its quirk that ``unique_base`` is the number of unique ROWS of the 5 x S
+  count matrix (one global scalar that cancels under max-normalization but
+  takes part in each rounding);
+* ``henikoff_weights_host_site_major`` (``:207-260``): the same from a
+  site-major buffer, chunked over site rows, bit-equal to the JAX function;
+* ``_henikoff_partial_sums`` (``:137-166``, the ``python`` formula; the
+  Rust ``paper`` variant is not ported), ``henikoff_weights_site_major``
+  (``:170-205``) and ``henikoff_weights_large`` (``:263-281``): plain torch
+  ops on a device (XLA glue in the JAX package, not kernels).  The cell
+  arithmetic runs in float32 as in JAX, with the one-hot
+  selects of JAX in place of a gather; the per-sequence sums over sites
+  accumulate in float64 and both are chunked over sites, so device memory
+  stays bounded.  They are held to the host weights at a tolerance, not
+  bits.
+
+Ambiguous cells (code 5) take the site's mean contribution; a site with no
+concrete allele imputes 0 instead of the reference's 0/0 NaN.  The weights
+are max-normalized.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .encode import N_ALLELES, N_CODES, UNKNOWN
 
@@ -42,3 +55,90 @@ def henikoff_weights_host(alignment) -> np.ndarray:
     weights = contrib.sum(axis=1)
     with np.errstate(invalid="ignore"):
         return weights / weights.max()
+
+
+def henikoff_weights_host_site_major(codes_sm, n_sites: int, n_seqs: int,
+                                     row_chunk: int = 4096) -> np.ndarray:
+    """``[n_seqs]`` float64 weights from a SITE-MAJOR, possibly padded,
+    buffer whose column ``k`` is alignment row ``k``: the arithmetic of
+    :func:`henikoff_weights_host`, the global ``unique_base`` included, with
+    the per-sequence totals accumulated over ``row_chunk``-site chunks, so
+    they can differ from the whole-array sums in the last f64 ulp or two."""
+    from .sites import site_histogram_host_site_major
+
+    codes_sm = np.asarray(codes_sm)
+    counts_all = site_histogram_host_site_major(
+        codes_sm, n_sites, n_seqs, row_chunk=row_chunk)        # [S, 5]
+    unique_base = float(
+        len(np.unique(counts_all.T.astype(np.float64), axis=0)))
+    total = np.zeros(n_seqs, dtype=np.float64)
+    for lo in range(0, n_sites, row_chunk):
+        hi = min(lo + row_chunk, n_sites)
+        blk = codes_sm[lo:hi, :n_seqs]                         # [B, N] int8
+        b = hi - lo
+        cnt = np.stack(
+            [(blk == c).sum(axis=1) for c in range(N_CODES)], axis=1
+        ).astype(np.float64)                                   # [B, 6]
+        ok = blk != UNKNOWN
+        own = cnt[np.arange(b)[:, None], blk]                  # [B, N]
+        contrib = np.zeros(blk.shape, dtype=np.float64)
+        np.divide(1.0, unique_base * own, out=contrib, where=ok)
+        concrete = cnt[:, :N_ALLELES].sum(axis=1)              # [B]
+        site_avg = np.zeros(b, dtype=np.float64)
+        np.divide(contrib.sum(axis=1), concrete, out=site_avg,
+                  where=concrete > 0)
+        contrib = np.where(ok, contrib, site_avg[:, None])
+        total += contrib.sum(axis=0)
+    with np.errstate(invalid="ignore"):
+        return total / total.max()
+
+
+def _henikoff_partial_sums(alignment: torch.Tensor) -> torch.Tensor:
+    """``[N]`` float64 un-normalized contribution sums of one site chunk
+    ``[N, S]`` of int8 codes (any strides).  The formula is per-site
+    additive, so chunking over sites is exact; the global ``unique_base``
+    is left out, since it cancels under the max-normalization."""
+    counts = torch.stack([(alignment == c).sum(dim=0)
+                          for c in range(N_CODES)]).float()      # [6, S]
+    own = sum(counts[c][None, :] * (alignment == c)
+              for c in range(N_CODES))                           # [N, S]
+    ok = alignment != UNKNOWN
+    zero = torch.zeros((), device=alignment.device)
+    contrib = torch.where(ok, 1.0 / own.clamp(min=1.0), zero)
+    concrete = counts[:N_ALLELES].sum(dim=0)                     # [S]
+    site_avg = contrib.sum(dim=0) / concrete.clamp(min=1.0)
+    contrib = torch.where(ok, contrib, site_avg[None, :])
+    return contrib.sum(dim=1, dtype=torch.float64)
+
+
+def henikoff_weights_site_major(codes_sm: torch.Tensor, n_seqs: int,
+                                site_chunk: int = 16384) -> torch.Tensor:
+    """``[N_pad]`` float32 weights on ``codes_sm``'s device from the ``[S_pad,
+    N_pad]`` site-major buffer a session uploaded (UNKNOWN padding on both
+    axes).  Padded sites have no concrete allele and contribute nothing;
+    padded sequences would take the imputed site means, so rows ``>=
+    n_seqs`` are zeroed before the max."""
+    total = torch.zeros(codes_sm.shape[1], dtype=torch.float64,
+                        device=codes_sm.device)
+    for lo in range(0, codes_sm.shape[0], site_chunk):
+        total += _henikoff_partial_sums(codes_sm[lo:lo + site_chunk].T)
+    total[n_seqs:] = 0.0
+    return (total / total.max()).float()
+
+
+def henikoff_weights_large(alignment: np.ndarray, site_chunk: int = 16384,
+                           device: str | torch.device | None = None,
+                           ) -> torch.Tensor:
+    """``[N]`` float32 weights of a host ``[N, S]`` alignment, computed on
+    ``device`` (default cuda) one ``site_chunk`` of sites at a time, so
+    device memory holds one chunk: the weighting of inputs too large for
+    the host float64 path."""
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    n, s = alignment.shape
+    total = torch.zeros(n, dtype=torch.float64, device=dev)
+    for lo in range(0, s, site_chunk):
+        chunk = np.ascontiguousarray(alignment[:, lo:lo + site_chunk])
+        total += _henikoff_partial_sums(torch.from_numpy(chunk).to(dev))
+    return (total / total.max()).float()

@@ -1,8 +1,9 @@
 """Variable-site masking on the host, in float64.
 
-Copies of ``site_histogram_host``, ``site_fractions_host`` and
-``compute_variable_sites_host`` (with ``compute_variable_sites_from_counts``)
-from ``weightedld_tpu/core/sites.py:89-190``.  Parity contract (reference
+Copies of ``site_histogram_host``, ``site_histogram_host_site_major``,
+``site_fractions_host`` and ``compute_variable_sites_host`` (with
+``compute_variable_sites_from_counts``) from
+``weightedld_tpu/core/sites.py:89-190``.  Parity contract (reference
 ``WeightedLD.py:44-98``):
 
 * coverage counts codes < 4 only; ``sufficient_data = coverage > min_acgt``
@@ -31,6 +32,20 @@ def site_histogram_host(alignment) -> np.ndarray:
     return np.stack(
         [(alignment == s).sum(axis=0) for s in range(N_ALLELES)], axis=1
     )
+
+
+def site_histogram_host_site_major(codes_sm, n_sites: int, n_seqs: int,
+                                   row_chunk: int = 4096) -> np.ndarray:
+    """``[n_sites, 5]`` int64 per-site allele counts from a SITE-MAJOR,
+    possibly padded, buffer (``sites.py:101-116``), in chunks of site rows
+    so the temporaries stay bounded."""
+    counts = np.zeros((n_sites, N_ALLELES), dtype=np.int64)
+    for lo in range(0, n_sites, row_chunk):
+        hi = min(lo + row_chunk, n_sites)
+        blk = codes_sm[lo:hi, :n_seqs]
+        for c in range(N_ALLELES):
+            counts[lo:hi, c] = (blk == c).sum(axis=1)
+    return counts
 
 
 def site_fractions_host(counts, n_seqs: int):

@@ -1,8 +1,12 @@
-"""FASTA ingestion (pure Python / numpy reader).
+"""FASTA ingestion: the native reader, the Python reader, and the two-pass
+streaming reader into the padded site-major layout.
 
-Copy of ``read_fasta`` / ``read_fasta_with_names`` and their helpers from
-``weightedld_tpu/io/fasta.py:20-101`` (the native reader and the Rust-binary
-framing are not ported).  BioPython / reference-Python semantics
+Copy of ``read_fasta_with_names`` (the native dispatch of
+``weightedld_tpu/io/fasta.py:20-35``), ``read_fasta_with_names_python``,
+``read_fasta``, ``iter_fasta_rows``, ``scan_fasta`` (``:185-254``, without
+sample subsetting), ``read_fasta_site_major`` (``:256-314``) and their
+helpers (``:38-101``); the Rust-binary framing is not ported.
+BioPython / reference-Python semantics
 (``WeightedLD.py:21-41``): a record is every line between one ``>`` header
 and the next, concatenated; whitespace-only lines are skipped; gzip input
 inflates transparently.
@@ -14,7 +18,12 @@ from pathlib import Path
 
 import numpy as np
 
-from ..core.encode import encode_alignment
+from ..core.encode import (
+    ALIGNMENT_DTYPE,
+    UNKNOWN,
+    encode_alignment,
+    encode_sequence_bytes,
+)
 
 
 def _open_maybe_gzip(path: str | Path):
@@ -52,7 +61,22 @@ def _iter_fasta_raw(path: str | Path):
 
 
 def read_fasta_with_names(path: str | Path) -> tuple[np.ndarray, list[str]]:
-    """``([n_seqs, n_sites] int8 codes, names)`` of a FASTA alignment."""
+    """``([n_seqs, n_sites] int8 codes, names)`` of a FASTA alignment: the
+    native mmap / OpenMP reader (``io/native.py``) when it is built, with
+    the same semantics and error messages, else
+    :func:`read_fasta_with_names_python` (``WLD_NATIVE_IO=0`` forces it)."""
+    from . import native
+
+    if native.available():
+        return native.read_fasta_native(path)
+    return read_fasta_with_names_python(path)
+
+
+def read_fasta_with_names_python(
+    path: str | Path,
+) -> tuple[np.ndarray, list[str]]:
+    """The Python reader, fallback and parity oracle of
+    :func:`read_fasta_with_names`."""
     names: list[str] = []
     rows: list[bytes] = []
     for name, raw in _iter_fasta_raw(path):
@@ -66,3 +90,96 @@ def read_fasta_with_names(path: str | Path) -> tuple[np.ndarray, list[str]]:
 def read_fasta(path: str | Path) -> np.ndarray:
     """Like :func:`read_fasta_with_names`, codes only."""
     return read_fasta_with_names(path)[0]
+
+
+def iter_fasta_rows(path: str | Path):
+    """``(record_index, encoded int8 row)`` per record, one record resident
+    at a time; a header with no sequence lines gives a length-0 row."""
+    for idx, (_name, raw) in enumerate(_iter_fasta_raw(path)):
+        yield idx, encode_sequence_bytes(raw)
+
+
+def scan_fasta(path: str | Path, block_rows: int = 1024,
+               ) -> tuple[int, int, np.ndarray]:
+    """Pass 1 of the two-pass FASTA ingest: ``(n_seqs, n_sites, counts
+    [S, 5])``, the per-site histograms over codes 0..4, without the
+    ``[N, S]`` matrix (peak memory: one ``[block_rows, S]`` row block).
+    Rectangularity is checked with the batch reader's wording; pass 2
+    re-validates every record."""
+    from ..core.sites import site_histogram_host
+
+    n_sites = None
+    n_seqs = 0
+    counts = None
+    block: list[np.ndarray] = []
+
+    def flush():
+        nonlocal counts
+        if block:
+            h = site_histogram_host(np.stack(block, axis=0)).astype(np.int64)
+            counts = h if counts is None else counts + h
+            block.clear()
+
+    for idx, row in iter_fasta_rows(path):
+        if n_sites is None:
+            n_sites = len(row)
+        elif len(row) != n_sites:
+            raise ValueError(
+                f"ragged alignment: sequence {idx} has length {len(row)}, "
+                f"expected {n_sites}"
+            )
+        n_seqs += 1
+        block.append(row)
+        if len(block) >= block_rows:
+            flush()
+    flush()
+    if (n_sites or 0) == 0 or n_seqs == 0:
+        raise ValueError(f"{path}: no sequences found")
+    return n_seqs, n_sites, counts
+
+
+def read_fasta_site_major(
+    path: str | Path,
+    ld_mask: np.ndarray,
+    scan: tuple[int, int],
+    s_pad: int | None = None,
+    n_pad: int | None = None,
+) -> np.ndarray:
+    """Pass 2: decode each record into its COLUMN of a padded site-major
+    buffer of the LD-kept sites, ``codes[s, k] == trimmed_alignment[k, s]``
+    with UNKNOWN padding.  ``scan`` is pass 1's ``(n_seqs, n_sites)``; a
+    record that disagrees with it raises "file changed between ingest
+    passes"."""
+    ld_mask = np.asarray(ld_mask, dtype=bool)
+    n_seqs, n_sites = scan
+    if len(ld_mask) != n_sites:
+        raise ValueError("ld_mask length must equal the scanned n_sites")
+    s_kept = int(ld_mask.sum())
+    s_pad = s_kept if s_pad is None else s_pad
+    n_pad = n_seqs if n_pad is None else n_pad
+    if s_pad < s_kept or n_pad < n_seqs:
+        raise ValueError(f"padding smaller than data: {(s_pad, n_pad)} < "
+                         f"{(s_kept, n_seqs)}")
+    out = np.full((s_pad, n_pad), UNKNOWN, dtype=ALIGNMENT_DTYPE)
+    # Rows land in a [B, s_kept] block that is transposed into the buffer
+    # once per block: a per-row strided column write is about 2x slower.
+    block_rows = 256
+    block = np.empty((block_rows, s_kept), dtype=ALIGNMENT_DTYPE)
+    k = 0
+    b = 0
+    full_keep = bool(ld_mask.all())
+    for _idx, row in iter_fasta_rows(path):
+        if len(row) != n_sites or k + b >= n_seqs:
+            raise ValueError(f"{path}: file changed between ingest passes")
+        block[b] = row if full_keep else row[ld_mask]
+        b += 1
+        if b == block_rows:
+            out[:s_kept, k:k + b] = block.T
+            k += b
+            b = 0
+    if b:
+        out[:s_kept, k:k + b] = block[:b].T
+        k += b
+    if k != n_seqs:
+        raise ValueError(f"{path}: file changed between ingest passes")
+    return out

@@ -1,9 +1,11 @@
-"""Multi-sample VCF ingestion (pure Python / numpy reader).
+"""Multi-sample VCF ingestion: the native reader, the Python reader, and
+the two-pass streaming reader into the padded site-major layout.
 
-Copy of ``read_vcf`` / ``read_vcf_python`` and their helpers from
-``weightedld_tpu/io/vcf.py:118-260, 360-405, 524-560`` (the native
-``libwldio`` reader is not ported).  Semantics (reference
-``WeightedLD.py:311-379``):
+Copy of ``read_vcf`` (the native dispatch of
+``weightedld_tpu/io/vcf.py:178-207``), ``read_vcf_python``, ``scan_vcf``
+(``:406-441``), ``read_vcf_site_major`` (``:443-522``) and their helpers
+(``:118-260, 360-405, 524-560``), without the chromosome, region and sample
+filters.  Semantics (reference ``WeightedLD.py:311-379``):
 
 * header = first line containing ``#CHROM``; the first data line needs more
   than 12 tab columns (multi-sample file);
@@ -25,7 +27,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..core.encode import ALIGNMENT_DTYPE, GAP
+from ..core.encode import ALIGNMENT_DTYPE, GAP, UNKNOWN
 from .fasta import _open_maybe_gzip
 
 
@@ -82,7 +84,14 @@ def _fast_parse_gt_block(block: str) -> np.ndarray | None:
 
 def read_vcf(path: str | Path) -> tuple[np.ndarray, np.ndarray]:
     """Read a multi-sample VCF into ``(alignment [n_haplotypes, n_sites]
-    int8, site_map [n_sites] int64 POS)`` — :func:`read_vcf_python`."""
+    int8, site_map [n_sites] int64 POS)``: the native mmap / OpenMP reader
+    (``io/native.py``) when it is built, with the same semantics and error
+    messages, else :func:`read_vcf_python` (``WLD_NATIVE_IO=0`` forces
+    it)."""
+    from . import native
+
+    if native.available():
+        return native.read_vcf_native(path)
     return read_vcf_python(path)
 
 
@@ -174,3 +183,68 @@ def read_vcf_python(path: str | Path) -> tuple[np.ndarray, np.ndarray]:
     mat = np.stack(site_rows, axis=0)                 # [n_sites, n_haps]
     alignment = np.ascontiguousarray(mat.T[::-1])     # rot90 row order
     return alignment, site_map
+
+
+def scan_vcf(path: str | Path) -> tuple[int, np.ndarray]:
+    """Pass 1 of the two-pass site-major ingest: ``(n_haplotypes,
+    site_map)`` without decoding genotypes (the POS list only).  The first
+    record is decoded once for the haplotype count; pass 2 re-validates
+    every record."""
+    positions: list[int] = []
+    n_haps = None
+    first = True
+    for lineno, line in _iter_variant_lines(path):
+        if first:
+            _check_multisample(path, line)
+            first = False
+        cols = line.split("\t", 2)
+        if len(cols) < 3:
+            raise VcfError(f"{path}:{lineno}: fewer than 10 columns")
+        positions.append(int(cols[1]))
+        if n_haps is None:
+            n_haps = len(_decode_record(path, lineno, line)[1])
+    if first:
+        raise VcfError(f"{path}: no variant records")
+    return n_haps, np.asarray(positions, dtype=np.int64)
+
+
+def read_vcf_site_major(
+    path: str | Path,
+    s_pad: int | None = None,
+    n_pad: int | None = None,
+    scan: tuple[int, np.ndarray] | None = None,
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Two-pass streaming ingest straight into the padded SITE-MAJOR layout:
+    ``(codes [s_pad, n_pad] int8, site_map, n_haplotypes)`` with
+    ``codes[s, k] == alignment[k, s]`` for :func:`read_vcf`'s ``alignment``
+    (row ``s`` holds the record's haplotypes reversed, the rot90 order) and
+    UNKNOWN padding.  Pass 1 (:func:`scan_vcf`, or ``scan``) sizes the
+    buffer, which is allocated once; pass 2 decodes each record into its
+    row, so peak host memory is the buffer itself.  The record set is the
+    readers' (trailing-line quirk included); a record count or POS that
+    differs from pass 1's raises "file changed between ingest passes".
+    ``s_pad`` / ``n_pad`` default to no padding; a session needs
+    ``LdSession.required_padding``'s."""
+    n_haps, site_map = scan if scan is not None else scan_vcf(path)
+    s = len(site_map)
+    s_pad = s if s_pad is None else s_pad
+    n_pad = n_haps if n_pad is None else n_pad
+    if s_pad < s or n_pad < n_haps:
+        raise ValueError(f"padding smaller than data: {(s_pad, n_pad)} < "
+                         f"{(s, n_haps)}")
+    out = np.full((s_pad, n_pad), UNKNOWN, dtype=ALIGNMENT_DTYPE)
+    i = 0
+    for lineno, line in _iter_variant_lines(path):
+        pos, row = _decode_record(path, lineno, line)
+        if len(row) != n_haps:
+            raise VcfError(
+                f"{path}:{lineno}: inconsistent haplotype count "
+                f"({len(row)} vs {n_haps})"
+            )
+        if i >= s or pos != site_map[i]:
+            raise VcfError(f"{path}: file changed between ingest passes")
+        out[i, :n_haps] = row[::-1]   # rot90 parity: reversed haplotypes
+        i += 1
+    if i != s:
+        raise VcfError(f"{path}: file changed between ingest passes")
+    return out, site_map, n_haps

@@ -1,12 +1,13 @@
 """TSV output writers (pair records and per-sequence weights).
 
 Copy of ``pair_header``, ``open_text_output``, ``_fmt``, ``write_pairs``
-(TSV layout, Python formatting path) and ``write_weights`` from
-``weightedld_tpu/io/writer.py:44-101, 183-268``.  The Python reference
-prints ``posa posb D D' R2`` tab-separated with ``round(x, 4)`` formatting
-(``WeightedLD.py:176, 282-284``); the weights TSV is the Rust reference's
-``index weight`` dump (``main.rs:70-80``).  The PLINK layout and the native
-formatter are not ported.
+(TSV layout) and ``write_weights`` from ``weightedld_tpu/io/writer.py:
+44-101, 183-268``.  The Python reference prints ``posa posb D D' R2``
+tab-separated with ``round(x, 4)`` formatting (``WeightedLD.py:176,
+282-284``); the weights TSV is the Rust reference's ``index weight`` dump
+(``main.rs:70-80``).  Both use the native formatter (``io/native.py``, the
+same bytes) when it is built and ``0 <= ndigits <= 100``, else the Python
+one.  The PLINK layout is not ported.
 """
 
 from __future__ import annotations
@@ -82,6 +83,18 @@ def write_pairs(records: LdRecords, out: IO[str] | None = None,
     out = out if out is not None else sys.stdout
     if header:
         out.write(pair_header() + "\n")
+    from . import native
+
+    if native.available() and 0 <= ndigits <= 100:
+        # Chunks of 2^18 records bound the formatter's buffer.
+        chunk = 1 << 18
+        for lo in range(0, len(records.pos_a), chunk):
+            hi = lo + chunk
+            out.write(native.format_pairs_native(
+                records.pos_a[lo:hi], records.pos_b[lo:hi],
+                records.d[lo:hi], records.d_prime[lo:hi],
+                records.r2[lo:hi], ndigits))
+        return
     buf: list[str] = []
     for pa, pb, d, dp, r2 in zip(
         records.pos_a.tolist(), records.pos_b.tolist(), records.d.tolist(),
@@ -100,5 +113,10 @@ def write_weights(weights: np.ndarray, out: IO[str], ndigits: int = 6) -> None:
     """Per-sequence weights TSV: header ``sequence weight``, then
     ``index weight`` rows."""
     out.write("sequence\tweight\n")
+    from . import native
+
+    if native.available() and 0 <= ndigits <= 100:
+        out.write(native.format_weights_native(np.asarray(weights), ndigits))
+        return
     for i, w in enumerate(np.asarray(weights).tolist()):
         out.write(f"{i}\t{round(float(w), ndigits)}\n")

@@ -71,11 +71,18 @@ def reset_launches() -> None:
 def pad_alignment_site_major(alignment: np.ndarray, tile: int,
                              seq_chunk: int = DEFAULT_SEQ_CHUNK) -> np.ndarray:
     """``[N, S]`` sequence-major codes -> ``[S_pad, N_pad]`` site-major,
-    padded with UNKNOWN (code 5) on both axes.  Copy of the numpy path of
-    ``pallas_ld.py:77-97`` (the native transpose is not ported)."""
+    padded with UNKNOWN (code 5) on both axes (copy of ``pallas_ld.py:
+    77-97``).  From 2^24 int8 cells on, the native blocked OpenMP transpose
+    (``io/native.py``) does it when the library is built; the numpy path
+    is its oracle."""
     n, s = alignment.shape
     s_pad = -(-s // tile) * tile
     n_pad = -(-n // seq_chunk) * seq_chunk
+    if alignment.size >= (1 << 24) and alignment.dtype == np.int8:
+        from ..io import native
+
+        if native.available():
+            return native.transpose_pad_i8(alignment, s_pad, n_pad, UNKNOWN)
     out = np.full((s_pad, n_pad), UNKNOWN, dtype=np.int8)
     out[:s, :n] = alignment.T
     return out

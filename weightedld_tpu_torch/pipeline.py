@@ -11,9 +11,10 @@ Counterpart of ``WldConfig`` (the fields this slice reads), ``prepare_fasta``,
 * VCF: no site masking, weights on the full haplotype matrix;
 * ``unweighted``: unit weights.
 
-Weights are the float64 host Henikoff weights (bit-equal to the reference).
-Inputs above 200M cells, which the JAX package weights in site chunks
-(``henikoff_weights_large``), raise ``NotImplementedError``.
+Weights are the float64 host Henikoff weights (bit-equal to the reference);
+inputs above 200M cells are weighted on the pipeline's device (default
+cuda), one chunk of sites at a time, by ``henikoff_weights_large``
+(``weightedld_tpu/pipeline.py:33-49``).
 """
 
 from __future__ import annotations
@@ -24,25 +25,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .core.henikoff import henikoff_weights_host
+from .core.henikoff import henikoff_weights_host, henikoff_weights_large
 from .core.ld_dense import LdRecords, extract_records, ld_all_pairs_dense
 from .core.sites import compute_variable_sites_host
 from .device import resolve_device
 from .io.fasta import read_fasta
 from .io.vcf import read_vcf
 
-# Above this many cells the JAX package weights in site chunks.
+# Above this many cells the weights are computed on the device in site
+# chunks (the host float64 path would hold several [N, S] f64 temporaries).
 _LARGE_CELLS = 200_000_000
 
 
-def _weights_for(alignment: np.ndarray) -> np.ndarray:
+def _weights_for(alignment: np.ndarray,
+                 device: str | torch.device | None = None) -> np.ndarray:
     if alignment.size > _LARGE_CELLS:
-        raise NotImplementedError(
-            f"{alignment.shape[0]} x {alignment.shape[1]} = "
-            f"{alignment.size} cells exceeds the {_LARGE_CELLS} cells of "
-            "the host float64 Henikoff path; the chunked "
-            "henikoff_weights_large is not ported to weightedld_tpu_torch "
-            "yet (ROADMAP queue 1 item 14)")
+        return henikoff_weights_large(alignment, device=device).cpu().numpy()
     return henikoff_weights_host(alignment)
 
 
@@ -67,8 +65,8 @@ class PipelineResult:
     records: LdRecords | None = None
 
 
-def prepare_fasta(path: str | Path, cfg: WldConfig,
-                  timer=None) -> PipelineResult:
+def prepare_fasta(path: str | Path, cfg: WldConfig, timer=None,
+                  device: str | torch.device | None = None) -> PipelineResult:
     from .runtime.profiling import StageTimer
 
     timer = timer or StageTimer()
@@ -83,13 +81,13 @@ def prepare_fasta(path: str | Path, cfg: WldConfig,
         if cfg.unweighted:
             weights = np.ones(alignment.shape[0], dtype=np.float32)
         else:
-            weights = _weights_for(trimmed)
+            weights = _weights_for(trimmed, device)
     return PipelineResult(alignment=trimmed, site_map=site_map,
                           weights=weights, hk_mask=hk_mask, ld_mask=ld_mask)
 
 
-def prepare_vcf(path: str | Path, cfg: WldConfig,
-                timer=None) -> PipelineResult:
+def prepare_vcf(path: str | Path, cfg: WldConfig, timer=None,
+                device: str | torch.device | None = None) -> PipelineResult:
     from .runtime.profiling import StageTimer
 
     timer = timer or StageTimer()
@@ -99,18 +97,20 @@ def prepare_vcf(path: str | Path, cfg: WldConfig,
         if cfg.unweighted:
             weights = np.ones(alignment.shape[0], dtype=np.float32)
         else:
-            weights = _weights_for(alignment)
+            weights = _weights_for(alignment, device)
     return PipelineResult(alignment=alignment, site_map=site_map,
                           weights=weights)
 
 
-def prepare(path: str | Path, cfg: WldConfig | None = None,
-            timer=None) -> PipelineResult:
-    """Dispatch on the file suffix like the reference (``WeightedLD.py:385``)."""
+def prepare(path: str | Path, cfg: WldConfig | None = None, timer=None,
+            device: str | torch.device | None = None) -> PipelineResult:
+    """Dispatch on the file suffix like the reference (``WeightedLD.py:385``).
+    ``device`` (default cuda) weights inputs over ``_LARGE_CELLS``; smaller
+    ones never touch it."""
     cfg = cfg or WldConfig()
     if str(path).endswith((".vcf", ".vcf.gz")):
-        return prepare_vcf(path, cfg, timer=timer)
-    return prepare_fasta(path, cfg, timer=timer)
+        return prepare_vcf(path, cfg, timer=timer, device=device)
+    return prepare_fasta(path, cfg, timer=timer, device=device)
 
 
 def run(path: str | Path, cfg: WldConfig | None = None,
@@ -119,7 +119,7 @@ def run(path: str | Path, cfg: WldConfig | None = None,
     fills ``result.records``."""
     cfg = cfg or WldConfig()
     dev = resolve_device(device)
-    res = prepare(path, cfg)
+    res = prepare(path, cfg, device=dev)
     stats = ld_all_pairs_dense(
         torch.from_numpy(np.ascontiguousarray(res.alignment)).to(dev),
         torch.from_numpy(np.asarray(res.weights, np.float32)).to(dev))
