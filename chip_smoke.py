@@ -113,6 +113,40 @@ result line):
              ``ld_majmin_planes``, every planted pair, its weights within
              rtol 1e-5 of ``henikoff_weights_host_site_major``.  Every
              stage is printed with the card and the host's core count.
+8. windows — windowed, region-restricted and inter-region LD at the
+             headline size: (1) the headline alignment on chromosome 20
+             with POS a seeded sum of geometric gaps (mean 200 bp, about
+             9.8 Mb) through the CLI with ``--max-distance-bp 1000000
+             --r2-threshold 0.1`` (PLINK 1.9's default ``--ld-window-kb
+             1000``): the full-triangle CLI's TSV filtered to ``posb - posa
+             <= 1000000``, byte for byte, every planted in-window pair,
+             ``ld_majmin_planes``; ``run_to_tsv(preplaned="off")`` with the
+             window (``ld_majmin_codes``, same bytes); ``--max-distance
+             5000`` beside it (the filter by both); ``--ld-decay`` counts
+             summing to the window's pairs; ``--prune-r2 0.1`` (no
+             windowed record joins two kept sites); one batch kernel
+             against plain; (2) ``--region 20:2000001-6000000`` with the
+             window: the bytes of ``run_to_tsv`` on that column slice with
+             its own Henikoff weights; (3) the alignment as a
+             two-chromosome VCF (sites 0-24,575 on ``1``, the rest on
+             ``2``, POS restarting): ``--cross-regions 1 2`` equal to the
+             full session's rectangle ``i < 24,576 <= j``, byte for byte,
+             every planted pair across the split, ``--stats-only`` counts,
+             and ``--ld-decay`` exiting 2; (4) the ambiguous FASTA with
+             ``--max-distance 2000``: windowed-packed, ``ld_majmin_planes``
+             and ``ld_general``, the full run's records within the window
+             (a set, rtol 2e-5 / atol 1e-6), every planted in-window pair,
+             its ``--stream-ingest`` twin's bytes, one batch of each phase
+             kernel against plain; (5) the ingest phase's cohort with
+             ``--keep-samples`` naming 503 samples and ``--max-distance
+             5000``: 1,006 haplotypes, weights equal to
+             ``henikoff_weights_host`` of the row subset, every planted
+             in-window pair; (6) ``--device cpu`` against ``--device cuda``
+             on a 4,096-site slice with ``--max-distance-bp 200000`` and on
+             the ambiguous FASTA's first 4,096 columns with
+             ``--max-distance 500`` (windowed-packed): byte-identical TSVs.
+             Every run prints its stages, launches, the scan's pairs/s
+             over the pairs in its set and its plan tiles, with the card.
 
 Not in the default run: ``--phases profile`` times the headline
 session's ``stream`` and ``summarize`` scans interleaved, one batch's
@@ -139,6 +173,9 @@ preplaned ``kernel="general"`` run and ``ld_general_unit`` from its
 runs of the analytics and ambiguous phases, the factorized split_bf16
 and bf16-exact variants from the analytics phase's summarize runs, and the
 general ones from the ambiguous phase's ``kernel="general"`` runs (2c).
+The windows phase zeroes the counters before each of its runs as well,
+requires the kernels each run must launch, and prints its counts on its
+own lines; the kernels line does not take them.
 Launches of the kernel-vs-plain checks (every weighted entry in lo_int8
 too, the factorized ones in split_bf16 and bf16-exact, each on a full
 batch of the main path's own session) are not counted.  The last three
@@ -189,6 +226,17 @@ N_AMB, S_AMB, N_DIRTY, N_AMB_GROUPS = 1024, 16384, 164, 300
 # phased diploid haplotypes, over the headline's 49,152 sites.
 N_COHORT, S_COHORT = 5008, 49152
 AMB_SLICE = 4096
+# The windows phase: the headline alignment on chromosome 20 with POS a
+# seeded cumulative sum of geometric gaps of mean WIN_GAP bp; PLINK 1.9's
+# default --ld-window-kb 1000 as the bp window, a site window beside it,
+# the decay edges (the window is inclusive and the bins half-open, so the
+# last edge is one past it), the region, the ambiguous FASTA's site
+# windows, and the cohort subset (the samples of 1000 Genomes phase 3's
+# EUR super-population).
+WIN_SEED, WIN_GAP, WIN_BP, WIN_SITES = 20, 200, 1_000_000, 5000
+WIN_DECAY = "0,1000,10000,100000,1000001"
+WIN_REGION = (2_000_001, 6_000_000)
+WIN_AMB, WIN_AMB_SLICE, N_SUBSET = 2000, 500, 503
 
 # name -> (TPU kernel it replaces, source)
 MAJMIN_SRC = "weightedld_tpu_torch/csrc/ld_majmin.cu"
@@ -910,10 +958,11 @@ def loaded_alignment(rng, n_seqs, n_sites, n_groups):
     return aln, seeds
 
 
-def write_vcf(path: Path, aln: np.ndarray) -> None:
+def write_vcf(path: Path, aln: np.ndarray, pos=None, chrom=None) -> None:
     """Phased diploid VCF whose reader output is ``aln`` (rows are the
-    reversed file-order haplotypes), POS = site index + 1; text built with
-    numpy, one genotype block per site."""
+    reversed file-order haplotypes), POS = ``pos`` (default site index +
+    1), CHROM = ``chrom`` (one name per site, default ``1``); text built
+    with numpy, one genotype block per site."""
     haps = aln[::-1]
     n_h, s = haps.shape
     lut = np.zeros(8, np.uint8)
@@ -929,11 +978,13 @@ def write_vcf(path: Path, aln: np.ndarray) -> None:
     head = ("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER"
             "\tINFO\tFORMAT\t"
             + "\t".join(f"S{i}" for i in range(n_h // 2)) + "\n")
+    pos = np.arange(1, s + 1) if pos is None else np.asarray(pos)
+    chrom = ["1"] * s if chrom is None else chrom
     with open(path, "wb") as fh:
         fh.write(head.encode())
         for i in range(s):
-            fh.write(f"1\t{i + 1}\trs{i + 1}\tA\tT\t100\tPASS\t.\tGT\t"
-                     .encode())
+            fh.write(f"{chrom[i]}\t{pos[i]}\trs{i + 1}\tA\tT\t100\tPASS\t.\t"
+                     "GT\t".encode())
             fh.write(rows[i].tobytes())
 
 
@@ -1765,10 +1816,10 @@ def _native_status() -> bool:
     return False
 
 
-def _stage_log(label: str, timer, wall: float) -> None:
+def _stage_log(label: str, timer, wall: float, tag: str = "ingest") -> None:
     for name, sec in timer.spans.items():
-        log(f"[ingest] {label}: stage {name:<12} {sec:.3f}s")
-    log(f"[ingest] {label}: cli wall {wall:.3f}s | host cores "
+        log(f"[{tag}] {label}: stage {name:<12} {sec:.3f}s")
+    log(f"[{tag}] {label}: cli wall {wall:.3f}s | host cores "
         f"{os.cpu_count()} | {card_line()}")
 
 
@@ -1983,6 +2034,434 @@ def phase_ingest(tmp: Path) -> None:
         f"default")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: windows (windowed, region-restricted and inter-region LD)
+# ---------------------------------------------------------------------------
+
+
+def window_positions(n_sites: int) -> np.ndarray:
+    """POS of the windowed headline VCF: a seeded cumulative sum of
+    geometric gaps with a mean of 200 bp (about 9.8 Mb over 49,152
+    sites)."""
+    gaps = np.random.default_rng(WIN_SEED).geometric(1 / WIN_GAP, n_sites)
+    return np.cumsum(gaps).astype(np.int64)
+
+
+def _tsv_rows(path: Path) -> tuple[str, list[str]]:
+    lines = path.read_text().splitlines(keepends=True)
+    return lines[0], lines[1:]
+
+
+def _rows_within(rows: list[str], keep) -> list[str]:
+    """The rows whose ``(pos_a, pos_b)`` pass ``keep``, in order."""
+    out = []
+    for ln in rows:
+        a, b = ln.split("\t", 2)[:2]
+        if keep(int(a), int(b)):
+            out.append(ln)
+    return out
+
+
+def _win_log(msg: str) -> None:
+    log(f"[windows] {msg}")
+
+
+def _scan_rate(label: str, n_pairs: int, spans: dict, n_tiles: int,
+               full_tiles: int | None = None) -> None:
+    scan = spans.get("scan+write", spans.get("scan", float("nan")))
+    tiles = f"plan {n_tiles} tiles" + (
+        f" (full plan {full_tiles})" if full_tiles is not None else "")
+    _win_log(f"{label}: {n_pairs} pairs kept in the pair set, "
+             f"{n_pairs / scan:.4g} pairs/s over the scan "
+             f"({scan:.3f}s); {tiles} | {card_line()}")
+
+
+def _need(counts: dict, names: tuple, label: str) -> None:
+    missing = [n for n in names if not counts.get(n)]
+    if missing:
+        raise AssertionError(f"{label} never launched {missing}: {counts}")
+
+
+def _win_run(label: str, argv: list[str], json_out: bool = False):
+    """One CLI run of the windows phase with its stage times and launches
+    printed: ``(launch counts, stage spans, its JSON or None)``."""
+    import contextlib
+    import io
+
+    from weightedld_tpu_torch.runtime.profiling import StageTimer
+
+    timer = StageTimer()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with (contextlib.redirect_stdout(buf) if json_out
+          else contextlib.nullcontext()):
+        counts = _drive(argv, timer=timer)
+    _stage_log(label, timer, time.monotonic() - t0, "windows")
+    _win_log(f"{label}: kernel launches "
+             f"{ {k: v for k, v in counts.items() if v} }")
+    out = (json.loads(buf.getvalue().strip().splitlines()[-1])
+           if json_out else None)
+    return counts, dict(timer.spans), out
+
+
+def _windowed_pairs(sess) -> int:
+    """Kept pairs of a session's (windowed or cross) pair set."""
+    return sess.summarize(r2_threshold=None)["n_pairs"]
+
+
+def phase_windows(tmp: Path) -> dict:
+    """Windowed, region-restricted and inter-region LD at the headline
+    size; returns the max abs errors of the batch checks."""
+    import contextlib
+    import io
+
+    import torch
+
+    from weightedld_tpu_torch import cli
+    from weightedld_tpu_torch.core.henikoff import henikoff_weights_host
+    from weightedld_tpu_torch.io.writer import pair_header, write_pairs, \
+        write_weights
+    from weightedld_tpu_torch.pipeline import WldConfig, prepare
+    from weightedld_tpu_torch.runtime.driver import (DriverConfig, LdSession,
+                                                     run_to_tsv)
+
+    err = {}
+    _vcf_h, aln, seeds = headline_vcf(tmp, "windows")
+    pos = window_positions(S_HEAD)
+    vcf = tmp / "window.vcf"
+    t0 = time.monotonic()
+    write_vcf(vcf, aln, pos=pos, chrom=["20"] * S_HEAD)
+    _win_log(f"VCF {N_HEAD} x {S_HEAD}, CHROM 20, POS {pos[0]}..{pos[-1]} "
+             f"(mean gap {WIN_GAP} bp): {vcf.stat().st_size / 1e6:.1f} MB in "
+             f"{time.monotonic() - t0:.1f}s")
+    idx = {int(p): i for i, p in enumerate(pos)}
+    planted = {(int(pos[a]), int(pos[b]))
+               for a, b in planted_pairs(seeds)}
+
+    # (1) The bp window at the headline size, PLINK's --ld-window-kb 1000.
+    w = str(WIN_BP)
+    full_out, win_out = tmp / "window_full.tsv", tmp / "window_bp.tsv"
+    _counts, spans, _o = _win_run(
+        "full triangle", ["--file", str(vcf), "--r2-threshold", "0.1",
+                          "--pair-output", str(full_out)])
+    n_full = S_HEAD * (S_HEAD - 1) // 2
+    _win_log(f"full triangle: {n_full / spans['scan+write']:.4g} pairs/s "
+             f"over the scan | {card_line()}")
+    counts, spans, _o = _win_run(
+        f"--max-distance-bp {w}",
+        ["--file", str(vcf), "--max-distance-bp", w, "--r2-threshold", "0.1",
+         "--pair-output", str(win_out)])
+    _need(counts, ("ld_majmin_planes",), "the bp-window run")
+    head, full_rows = _tsv_rows(full_out)
+    want = head + "".join(_rows_within(full_rows,
+                                       lambda a, b: b - a <= WIN_BP))
+    got = win_out.read_text()
+    if got != want:
+        raise AssertionError("the bp-window TSV is not the full TSV's rows "
+                             f"within {w} bp")
+    pairs = set(read_pairs(win_out))
+    in_win = {p for p in planted if p[1] - p[0] <= WIN_BP}
+    if in_win - pairs:
+        raise AssertionError(f"{len(in_win - pairs)} planted in-window "
+                             "pairs missing")
+    res = prepare(vcf)
+    sess = _session(res, r2_threshold=0.1, max_bp_distance=WIN_BP)
+    n_win = _windowed_pairs(sess)
+    full_tiles = -(-S_HEAD // 256) * (-(-S_HEAD // 256) + 1) // 2
+    _win_log(f"bp window: {len(pairs)} records = the full TSV's {len(full_rows)}"
+             f" rows filtered to posb - posa <= {w}, byte for byte; all "
+             f"{len(in_win)} planted in-window pairs present")
+    _scan_rate(f"--max-distance-bp {w}", n_win, spans, sess.plan.n_tiles,
+               full_tiles)
+    name, err["ld_majmin_planes"] = check_session_batch(
+        sess, "window bp", b=sess.n_batches - 1)
+    del sess
+
+    codes_out = tmp / "window_codes.tsv"
+    n_rec, counts = _counted(
+        run_to_tsv, res.alignment, res.weights, res.site_map, codes_out,
+        DriverConfig(r2_threshold=0.1, max_bp_distance=WIN_BP,
+                     preplaned="off"), device="cuda")
+    _need(counts, ("ld_majmin_codes",), "the bp-window codes-entry run")
+    if codes_out.read_bytes() != win_out.read_bytes():
+        raise AssertionError("the bp-window codes entry's TSV differs")
+    _win_log(f"bp window, run_to_tsv(preplaned='off'): ld_majmin_codes "
+             f"x{counts['ld_majmin_codes']}, {n_rec} records, same bytes")
+
+    both_out = tmp / "window_both.tsv"
+    counts, _spans, _o = _win_run(
+        f"--max-distance {WIN_SITES} --max-distance-bp {w}",
+        ["--file", str(vcf), "--max-distance", str(WIN_SITES),
+         "--max-distance-bp", w, "--r2-threshold", "0.1", "--pair-output",
+         str(both_out)])
+    _need(counts, ("ld_majmin_planes",), "the two-window run")
+    want = head + "".join(_rows_within(
+        full_rows, lambda a, b: b - a <= WIN_BP
+        and idx[b] - idx[a] <= WIN_SITES))
+    if both_out.read_text() != want:
+        raise AssertionError("the two-window TSV is not the full TSV "
+                             "filtered by both windows")
+    _win_log(f"--max-distance {WIN_SITES} with the bp window: the full TSV "
+             "filtered by both, byte for byte")
+
+    edges = [int(e) for e in WIN_DECAY.split(",")]
+    counts, _spans, out = _win_run(
+        f"--max-distance-bp {w} --ld-decay",
+        ["--file", str(vcf), "--max-distance-bp", w, "--ld-decay",
+         WIN_DECAY], json_out=True)
+    _need(counts, ("ld_majmin_planes",), "the windowed --ld-decay run")
+    if sum(out["n_pairs"]) != n_win:
+        raise AssertionError(f"--ld-decay {WIN_DECAY} counts sum to "
+                             f"{sum(out['n_pairs'])}, not the window's "
+                             f"{n_win} pairs")
+    _win_log(f"--ld-decay {edges} under the window: counts {out['n_pairs']}"
+             f" sum to the window's {n_win} pairs")
+
+    prune_out = tmp / "window_prune.txt"
+    counts, _spans, _o = _win_run(
+        f"--max-distance-bp {w} --prune-r2 0.1",
+        ["--file", str(vcf), "--max-distance-bp", w, "--prune-r2", "0.1",
+         "--pair-output", str(prune_out)])
+    _need(counts, ("ld_majmin_planes",), "the windowed --prune-r2 run")
+    kept = {int(x) for x in prune_out.read_text().split()}
+    joined = [p for p in pairs if p[0] in kept and p[1] in kept]
+    if joined:
+        raise AssertionError(f"{len(joined)} windowed records join two "
+                             f"kept sites, e.g. {joined[:3]}")
+    _win_log(f"--prune-r2 0.1 under the window: {len(kept)} of {S_HEAD} "
+             "sites kept, no windowed record joins two of them")
+    del res
+
+    # (2) A region: the same bytes as the session on that column slice.
+    lo, hi = WIN_REGION
+    reg_out = tmp / "window_region.tsv"
+    counts, spans, _o = _win_run(
+        f"--region 20:{lo}-{hi} --max-distance-bp {w}",
+        ["--file", str(vcf), "--region", f"20:{lo}-{hi}",
+         "--max-distance-bp", w, "--r2-threshold", "0.1", "--pair-output",
+         str(reg_out)])
+    _need(counts, ("ld_majmin_planes",), "the region run")
+    col = (pos >= lo) & (pos <= hi)
+    sub = np.ascontiguousarray(aln[:, col])
+    ref_out = tmp / "window_region_ref.tsv"
+    run_to_tsv(sub, henikoff_weights_host(sub), pos[col], ref_out,
+               DriverConfig(r2_threshold=0.1, max_bp_distance=WIN_BP),
+               device="cuda")
+    rsess = _session(prepare(vcf, WldConfig(region=f"20:{lo}-{hi}")),
+                     r2_threshold=0.1, max_bp_distance=WIN_BP)
+    _scan_rate(f"--region 20:{lo}-{hi}", _windowed_pairs(rsess), spans,
+               rsess.plan.n_tiles)
+    del rsess
+    if reg_out.read_bytes() != ref_out.read_bytes():
+        raise AssertionError("the region run differs from the session on "
+                             "its column slice")
+    _win_log(f"--region 20:{lo}-{hi}: {int(col.sum())} sites, the same "
+             f"bytes as run_to_tsv on that column slice with its own "
+             f"Henikoff weights ({reg_out.read_text().count(chr(10)) - 1} "
+             "records)")
+
+    # (3) Across two chromosomes: sites 0..SPLIT-1 on 1, the rest on 2.
+    split = S_HEAD // 2
+    cvcf = tmp / "window_two_chroms.vcf"
+    local = np.concatenate([np.arange(1, split + 1),
+                            np.arange(1, S_HEAD - split + 1)])
+    write_vcf(cvcf, aln, pos=local,
+              chrom=["1"] * split + ["2"] * (S_HEAD - split))
+    cross_out = tmp / "window_cross.tsv"
+    counts, spans, _o = _win_run(
+        "--cross-regions 1 2",
+        ["--file", str(cvcf), "--cross-regions", "1", "2", "--r2-threshold",
+         "0.1", "--pair-output", str(cross_out)])
+    _need(counts, ("ld_majmin_planes",), "the cross run")
+    pre = prepare(_vcf_h)        # the same alignment, one chromosome
+    full = LdSession(pre.alignment, pre.weights, np.arange(S_HEAD),
+                     DriverConfig(r2_threshold=0.1), device="cuda")
+    buf = io.StringIO()
+    buf.write(pair_header() + "\n")
+    n_rect = 0
+    for b in range(full.n_batches):
+        fn, _plain, args, kw = full.batch_kernel(b)
+        ti, tj, em = full.batch_tiles(b)
+        st = fn(*args, ti, tj, em, **kw)
+        li = torch.arange(256, device=st.keep.device)
+        gi = ti.long()[:, None] * 256 + li
+        gj = tj.long()[:, None] * 256 + li
+        n_rect += int((st.keep & (gi < split)[:, :, None]
+                       & (gj >= split)[:, None, :]).sum())
+    for _b, rec in full.stream():
+        a, b = np.asarray(rec.pos_a), np.asarray(rec.pos_b)
+        m = (a < split) & (b >= split)
+        sel = type(rec)(pos_a=local[a[m]], pos_b=local[b[m]],
+                        d=rec.d[m], d_prime=rec.d_prime[m], r2=rec.r2[m])
+        write_pairs(sel, buf, header=False)
+    del full
+    if cross_out.read_text() != buf.getvalue():
+        raise AssertionError("the cross rows differ from the full session's "
+                             "rectangle")
+    cross_pairs = read_pairs(cross_out)
+    straddle = {(a, b) for a, b in planted_pairs(seeds)
+                if a < split <= b}
+    got_idx = {(a - 1, b - 1 + split) for a, b in cross_pairs}
+    if straddle - got_idx:
+        raise AssertionError(f"{len(straddle - got_idx)} planted pairs "
+                             "across the split missing")
+    _win_log(f"--cross-regions 1 2: {len(cross_pairs)} records = the full "
+             f"session's rectangle i < {split} <= j, byte for byte; all "
+             f"{len(straddle)} planted pairs across the split present")
+    _scan_rate("--cross-regions 1 2", n_rect, spans,
+               -(-split // 256) * -(-(S_HEAD - split) // 256), full_tiles)
+    counts, _spans, out = _win_run(
+        "--cross-regions 1 2 --stats-only",
+        ["--file", str(cvcf), "--cross-regions", "1", "2", "--r2-threshold",
+         "0.1", "--stats-only"], json_out=True)
+    _need(counts, ("ld_majmin_planes",), "the cross --stats-only run")
+    if (out["n_pairs"], out["n_over_threshold"]) != (n_rect,
+                                                      len(cross_pairs)):
+        raise AssertionError(f"cross --stats-only {out} != rectangle "
+                             f"{n_rect} pairs, {len(cross_pairs)} records")
+    _win_log(f"cross --stats-only: n_pairs {out['n_pairs']} (= {split}^2 "
+             f"less the skipped pairs), n_over_threshold "
+             f"{out['n_over_threshold']} = the records")
+    with contextlib.redirect_stderr(io.StringIO()) as e:
+        rc = cli.main(["--file", str(cvcf), "--cross-regions", "1", "2",
+                       "--ld-decay", WIN_DECAY])
+    if rc != 2 or "ONE chromosome" not in e.getvalue():
+        raise AssertionError(f"cross --ld-decay across chromosomes exited "
+                             f"{rc}: {e.getvalue()!r}")
+    _win_log("cross --ld-decay across two chromosomes exits 2")
+
+    # (4) The windowed unsafe-site packing on the ambiguous FASTA.
+    fasta, amb, trips, _dirty = ambiguous_fasta(tmp, "windows")
+    ares = prepare(fasta)
+    kept_idx = {int(c): i for i, c in enumerate(ares.site_map)}
+    wsess = _session(ares, r2_threshold=0.1, max_site_distance=WIN_AMB)
+    if not wsess.windowed_packed:
+        raise AssertionError("the ambiguous window did not pack")
+    _win_log(f"ambiguous --max-distance {WIN_AMB}: windowed-packed, "
+             f"{wsess.phase_tiles} tile pairs of {wsess.plan.n_tiles} "
+             f"(full plan {-(-S_AMB // 256) * (-(-S_AMB // 256) + 1) // 2})")
+    n_amb, amb_tiles = _windowed_pairs(wsess), wsess.plan.n_tiles
+    for b, label in ((0, "factorized phase"),
+                     (wsess.n_batches - 1, "general phase")):
+        name, e = check_session_batch(wsess, f"ambiguous window {label}", b=b)
+        err[name] = max(err.get(name, 0.0), e)
+    del wsess
+    argv = ["--file", str(fasta), "--r2-threshold", "0.1", "--ndigits", "8"]
+    amb_full, amb_win = tmp / "window_amb_full.tsv", tmp / "window_amb.tsv"
+    _win_run("ambiguous, no window", argv + ["--pair-output", str(amb_full)])
+    counts, spans, _o = _win_run(
+        f"ambiguous --max-distance {WIN_AMB}",
+        argv + ["--max-distance", str(WIN_AMB), "--pair-output",
+                str(amb_win)])
+    _need(counts, ("ld_majmin_planes", "ld_general"),
+          "the windowed-packed run")
+    got, full_rec = read_records(amb_win), read_records(amb_full)
+    want = {k: v for k, v in full_rec.items()
+            if kept_idx[k[1]] - kept_idx[k[0]] <= WIN_AMB}
+    if set(got) != set(want):
+        raise AssertionError(f"windowed-packed records: "
+                             f"{len(set(got) ^ set(want))} pairs differ "
+                             "from the filtered full run")
+    np.testing.assert_allclose(np.array([got[k] for k in want]),
+                               np.array(list(want.values())), rtol=2e-5,
+                               atol=1e-6)
+    in_win = {p for p in planted_pairs(trips)
+              if kept_idx[p[1]] - kept_idx[p[0]] <= WIN_AMB}
+    if in_win - set(got):
+        raise AssertionError("planted in-window ambiguous pairs missing")
+    _scan_rate(f"ambiguous --max-distance {WIN_AMB}", n_amb, spans,
+               amb_tiles)
+    stream_out = tmp / "window_amb_stream.tsv"
+    counts, _spans, _o = _win_run(
+        f"ambiguous --max-distance {WIN_AMB} --stream-ingest",
+        argv + ["--max-distance", str(WIN_AMB), "--stream-ingest",
+                "--pair-output", str(stream_out)])
+    _need(counts, ("ld_general",), "the streamed windowed run")
+    if stream_out.read_bytes() != amb_win.read_bytes():
+        raise AssertionError("the streamed windowed TSV differs")
+    _win_log(f"ambiguous window: {len(got)} records = the full run's within "
+             f"{WIN_AMB} kept sites (a set, rtol 2e-5 / atol 1e-6), all "
+             f"{len(in_win)} planted in-window pairs; --stream-ingest "
+             "writes the same bytes")
+    del ares
+
+    # (5) A population subset of the cohort, windowed.
+    cvcf_c = tmp / "cohort.vcf"
+    rng = np.random.default_rng(2504)
+    caln, cseeds = loaded_alignment(rng, N_COHORT, S_COHORT, N_TRIPLETS)
+    if not cvcf_c.exists():
+        write_vcf(cvcf_c, caln)
+    keep = [f"S{i}" for i in np.sort(np.random.default_rng(503).choice(
+        N_COHORT // 2, N_SUBSET, replace=False))]
+    keep_file = tmp / "subset.txt"
+    keep_file.write_text("\n".join(keep) + "\n")
+    sub_out, w_out = tmp / "cohort_subset.tsv", tmp / "cohort_subset_w.tsv"
+    counts, _spans, _o = _win_run(
+        f"cohort --keep-samples ({N_SUBSET}) --max-distance {WIN_SITES}",
+        ["--file", str(cvcf_c), "--keep-samples", f"@{keep_file}",
+         "--max-distance", str(WIN_SITES), "--r2-threshold", "0.1",
+         "--pair-output", str(sub_out), "--weights-output", str(w_out)])
+    _need(counts, ("ld_majmin_planes",), "the cohort subset run")
+    kept_samples = {int(k[1:]) for k in keep}
+    rows = np.array([(N_COHORT - 1 - k) // 2 in kept_samples
+                     for k in range(N_COHORT)])
+    sub = np.ascontiguousarray(caln[rows])
+    del caln
+    buf = io.StringIO()
+    write_weights(henikoff_weights_host(sub), buf)
+    if w_out.read_text() != buf.getvalue():
+        raise AssertionError("cohort subset weights differ from "
+                             "henikoff_weights_host of the row subset")
+    n_h = w_out.read_text().count("\n") - 1
+    if n_h != 2 * N_SUBSET:
+        raise AssertionError(f"cohort subset has {n_h} haplotypes")
+    got = set(read_pairs(sub_out))
+    in_win = {p for p in planted_pairs(cseeds, offset=1)
+              if p[1] - p[0] <= WIN_SITES}
+    if in_win - got:
+        raise AssertionError("planted in-window cohort pairs missing")
+    _win_log(f"cohort subset: {n_h} haplotypes, weights equal to "
+             f"henikoff_weights_host of the row subset, {len(got)} records,"
+             f" all {len(in_win)} planted in-window pairs")
+    del sub
+
+    # (6) CPU against the card.
+    sl = tmp / "window_slice.vcf"
+    write_vcf(sl, aln[:, :SLICE_SITES], pos=pos[:SLICE_SITES],
+              chrom=["20"] * SLICE_SITES)
+    asl = tmp / "window_amb_slice.fasta"
+    write_fasta_codes(asl, amb[:, :AMB_SLICE], np.random.default_rng(7))
+    for label, path, extra, kernels in (
+            ("VCF slice --max-distance-bp 200000", sl,
+             ["--seq-chunk", "200", "--max-distance-bp", "200000",
+              "--r2-threshold", "0.005"], ("ld_majmin_codes",)),
+            (f"ambiguous slice --max-distance {WIN_AMB_SLICE}", asl,
+             ["--seq-chunk", "256", "--max-distance", str(WIN_AMB_SLICE),
+              "--r2-threshold", "0.03"], ("ld_general",))):
+        outs, cnt = {}, {}
+        for device in ("cpu", "cuda"):
+            out = tmp / f"window_slice_{device}.tsv"
+            cnt[device], _spans, _o = _win_run(
+                f"cpu-vs-card {label} on {device}",
+                ["--file", str(path), "--device", device, "--engine",
+                 "tiled", "--tile", "256", "--pair-output", str(out)]
+                + extra)
+            outs[device] = out.read_bytes()
+        if any(cnt["cpu"].values()):
+            raise AssertionError(f"the CPU run launched kernels: {cnt['cpu']}")
+        _need(cnt["cuda"], kernels, f"cpu-vs-card {label} on the card")
+        if outs["cpu"] != outs["cuda"]:
+            raise AssertionError(f"cpu-vs-card {label}: TSVs differ")
+        _win_log(f"cpu-vs-card {label}: byte-identical "
+                 f"({len(outs['cuda'])} bytes)")
+    sres = prepare(asl)
+    ssess = _session(sres, tile=256, seq_chunk=256,
+                     max_site_distance=WIN_AMB_SLICE)
+    if not ssess.windowed_packed:
+        raise AssertionError("the ambiguous slice window did not pack")
+    return err
+
+
 def _scan_seconds(sess) -> float:
     """Wall seconds of one ``stream()`` scan of ``sess``, synchronized."""
     import torch
@@ -2006,9 +2485,10 @@ def phase_profile() -> None:
     (``topk_batch``) and as one flat ``torch.topk``, the same gather
     after each, beside that batch's kernel launch; then one scan runs
     under torch.profiler for the device time by kernel and the device idle
-    share."""
+    share.  Then the same for the windowed headline (``--max-distance-bp
+    1000000`` on the windows phase's positions), with the window and cross
+    masks timed alone on a full batch beside its kernel launch."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from weightedld_tpu_torch.core.henikoff import henikoff_weights_host
     from weightedld_tpu_torch.parallel.analytics import pair_rows, topk_batch
@@ -2073,6 +2553,45 @@ def phase_profile() -> None:
         f"{ms['flat']} ms | {card_line()}")
     del st, a, b
 
+    _profile_scan(sess, "headline")
+    del sess
+
+    # The windowed headline: the scan, its breakdown, and each mask form
+    # alone on a full batch of 2,520 tiles.
+    pos = window_positions(S_HEAD)
+    wsess = LdSession(aln, w, pos, DriverConfig(r2_threshold=0.1,
+                                                max_bp_distance=WIN_BP))
+    n_win = wsess.summarize(r2_threshold=None)["n_pairs"]
+    _scan_seconds(wsess)                               # warm-up
+    dts = [_scan_seconds(wsess) for _ in range(3)]
+    log(f"[profile] windowed stream ({wsess.plan.n_tiles} tiles, "
+        f"{wsess.n_batches} batches): {dts} s, {n_win / min(dts):.4g} "
+        f"pairs/s over the window's {n_win} pairs | {card_line()}")
+    fn, _plain, args, kw = wsess.batch_kernel(0)
+    ti, tj, em = wsess.batch_tiles(0)
+    ms_kernel, st = _time_cuda(lambda: fn(*args, ti, tj, em, **kw), 3)
+    masks = {"bp window": wsess}
+    masks["cross rectangle"] = LdSession(
+        aln, w, pos, DriverConfig(r2_threshold=0.1, cross_split=S_HEAD // 2))
+    masks["site window"] = LdSession(
+        aln, w, pos, DriverConfig(r2_threshold=0.1, max_site_distance=5000))
+    for label, ms_sess in masks.items():
+        # Folding the same mask again leaves keep as it is: time in place.
+        ms_mask = _time_cuda(lambda: ms_sess._mask_pairs(st.keep, ti, tj),
+                             5)[0]
+        log(f"[profile] {label} mask on batch 0 ({ti.shape[0]} tiles, "
+            f"{ti.shape[0] * 65536} pairs): {ms_mask:.3f} ms beside the "
+            f"kernel's {ms_kernel:.3f} ms ({ms_mask / ms_kernel:.4f}) | "
+            f"{card_line()}")
+    del masks, st
+    _profile_scan(wsess, "windowed")
+
+
+def _profile_scan(sess, label: str) -> None:
+    """One ``stream`` scan of ``sess`` under torch.profiler: device kernel
+    time by kernel and the device idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = _scan_seconds(sess)
@@ -2081,8 +2600,8 @@ def phase_profile() -> None:
                    if e.device_time_total > 0), key=lambda r: -r[1])
     kernels = [r for r in rows if not r[0].startswith(("aten::", "cuda"))]
     busy = sum(r[1] for r in kernels)
-    log(f"[profile] device kernel time {busy:.3f} ms of {wall * 1e3:.3f} ms "
-        f"wall: idle share {1 - busy / (wall * 1e3):.4f}")
+    log(f"[profile] {label} scan: device kernel time {busy:.3f} ms of "
+        f"{wall * 1e3:.3f} ms wall: idle share {1 - busy / (wall * 1e3):.4f}")
     for name, ms_k, count in kernels[:12]:
         log(f"[profile]   {ms_k:10.3f} ms x{count:<4d} {name[:90]}")
 
@@ -2414,16 +2933,17 @@ def phase_gpace() -> None:
 
 
 DEFAULT_PHASES = ("build", "kernels", "main", "cpu-vs-card", "analytics",
-                  "ambiguous", "ingest")
+                  "ambiguous", "ingest", "windows")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of build, kernels, main, "
-                    "cpu-vs-card, analytics, ambiguous, ingest, profile, "
-                    "entries, pace, general, gpace and yardstick (default: "
-                    "the first seven, which the result line needs)")
+                    "cpu-vs-card, analytics, ambiguous, ingest, windows, "
+                    "profile, entries, pace, general, gpace and yardstick "
+                    "(default: the first eight, which the result line "
+                    "needs)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -2490,6 +3010,11 @@ def main() -> int:
             t0 = time.monotonic()
             phase_ingest(tmp)
             done("ingest", t0)
+        if "windows" in phases:
+            t0 = time.monotonic()
+            for name, e in phase_windows(tmp).items():
+                err[name] = max(err[name], e)
+            done("windows", t0)
         if "profile" in phases:
             phase_profile()
         if "entries" in phases:

@@ -462,9 +462,9 @@ def test_streaming_fasta_equals_jax(tmp_path, pad):
     aln = random_alignment(rng, 50, 90)
     path = tmp_path / "r.fasta"
     write_fasta(path, ["".join("ACGT-N"[c] for c in row) for row in aln])
-    n_seqs, n_sites, counts = fasta.scan_fasta(path, block_rows=16)
+    n_seqs, n_sites, counts, mask = fasta.scan_fasta(path, block_rows=16)
     jn, js, jcounts, jmask = jfasta.scan_fasta(path, block_rows=16)
-    assert (n_seqs, n_sites) == (jn, js) and jmask is None
+    assert (n_seqs, n_sites) == (jn, js) and mask is None and jmask is None
     np.testing.assert_array_equal(counts, jcounts)
     ld_mask = rng.random(n_sites) < 0.7
     s_pad, n_pad = pad or (None, None)

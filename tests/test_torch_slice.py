@@ -300,10 +300,10 @@ def test_cuda_default_without_card_is_an_error(tmp_path, capsys):
         run(path)
 
 
-@pytest.mark.parametrize("flag", ["--max-distance-bp", "--max-distance=10",
+@pytest.mark.parametrize("flag", ["--out-format", "--save-prepared=x.npz",
                                   "--checkpoint", "--devices",
-                                  "--cross-regions", "--sort",
-                                  "--chrom", "--verbose"])
+                                  "--site-stats", "--sort",
+                                  "--progress", "--verbose"])
 def test_cli_flag_not_yet_ported(flag, capsys):
     assert cli.main(["--file", "x.vcf", "--device", "cpu", flag]) == 2
     err = capsys.readouterr().err

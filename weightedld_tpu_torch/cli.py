@@ -18,11 +18,16 @@ Supported flags: ``--file``, ``--min-acgt``, ``--min-variability``,
 ``--weight-quant``, ``--ndigits``, ``--weights-output``,
 ``--stream-ingest``, the port's
 ``--device`` (default ``cuda``; no card is an error, never a silent CPU
-run), and the analytics output modes of ``weightedld_tpu/cli.py:857-1058``,
+run), the analytics output modes of ``weightedld_tpu/cli.py:857-1058``,
 one per run: ``--stats-only`` (JSON summary), ``--top K``, ``--ld-decay
 EDGES``, ``--r2-hist EDGES``, ``--prune-r2 THR`` with ``--prune-rule``, and
-``--matrix-output`` with ``--matrix-dtype``.  Every other flag of the JAX
-CLI exits 2 with "not yet ported".
+``--matrix-output`` with ``--matrix-dtype``; windowed LD (``--max-distance``,
+``--max-distance-bp``) and inter-region LD (``--cross-regions``), which
+run the tiled session; the VCF record filters ``--chrom`` and ``--region``,
+``--list-chroms``, and the sample flags ``--keep-samples`` /
+``--exclude-samples``, with the JAX CLI's validations and exit codes
+(``cli.py:271-324, 420-470, 632-639, 733-743, 823-826``).  Every other flag
+of the JAX CLI exits 2 with "not yet ported".
 
 Output order: the dense engine emits pairs in (site_a, site_b) row-major
 order like the Python reference; the tiled engine in tile order like the
@@ -43,16 +48,11 @@ import numpy as np
 
 # Flags of the JAX CLI that this port does not take yet -> ROADMAP item.
 NOT_PORTED = {
-    **dict.fromkeys(("--max-distance", "--max-distance-bp",
-                     "--cross-regions"),
-                    "queue 1 item 9 (windowed and cross plans)"),
     **dict.fromkeys(("--version", "-v", "--verbose", "--max-minor",
                      "--weight-mask", "--compat", "--fasta-reader",
                      "--weighting", "--out-format", "--save-prepared",
-                     "--load-prepared", "--chrom", "--region",
-                     "--keep-samples", "--exclude-samples", "--site-stats",
-                     "--list-chroms", "--sort", "--progress",
-                     "--progress-bar"),
+                     "--load-prepared", "--site-stats", "--sort",
+                     "--progress", "--progress-bar"),
                     "queue 1 item 10 (full CLI parity)"),
     **dict.fromkeys(("--checkpoint", "--profile-dir"),
                     "queue 1 item 12 (checkpoint, profiling)"),
@@ -148,6 +148,53 @@ def build_parser() -> argparse.ArgumentParser:
                    "the default readers'; Henikoff weights run chunked in "
                    "f64 (equal to the default's up to summation order, ~1 "
                    "ulp).  Runs the tiled engine")
+    p.add_argument("--chrom", type=str, default=None,
+                   help="VCF only: keep records of this chromosome (CHROM "
+                   "column) — the reference ignores CHROM, so whole-genome "
+                   "VCFs mix chromosomes into one position axis; required "
+                   "for per-chromosome --ld-decay/--prune-r2 on such files")
+    p.add_argument("--region", type=str, default=None, metavar="CHR[:LO-HI]",
+                   help="VCF only: keep records of this samtools-style "
+                   "region — a chromosome name, optionally with a 1-based "
+                   "inclusive POS window (e.g. chr19:44890000-44890200). "
+                   "Bare CHR equals --chrom CHR (the two flags are "
+                   "mutually exclusive); composable with --stream-ingest")
+    p.add_argument("--cross-regions", type=str, nargs=2, default=None,
+                   metavar=("A", "B"),
+                   help="VCF only: inter-region (rectangular) LD — compute "
+                   "ONLY pairs with one site in region A and one in region "
+                   "B (each a samtools-style CHR[:LO-HI]; disjoint, may be "
+                   "different chromosomes).  Weights are Henikoff over the "
+                   "combined A+B sites; posa comes from A, posb from B.  "
+                   "O(|A|*|B|) work instead of the full triangle; forces "
+                   "the tiled engine; exclusive with --chrom/--region and "
+                   "the window flags")
+    p.add_argument("--keep-samples", type=str, default=None, metavar="SPEC",
+                   help="restrict the analysis to these sequences/samples "
+                   "BEFORE masking and weighting: a comma-separated list "
+                   "of FASTA record names or VCF header sample names, or "
+                   "@FILE with one name per line (both haplotypes of a "
+                   "kept VCF sample are kept); unknown names are an error")
+    p.add_argument("--exclude-samples", type=str, default=None,
+                   metavar="SPEC",
+                   help="drop these sequences/samples (same SPEC form as "
+                   "--keep-samples; applied after it)")
+    p.add_argument("--list-chroms", action="store_true",
+                   help="VCF only: print the distinct CHROM values (one per "
+                   "line, file order) and exit — the valid --chrom "
+                   "arguments for a per-chromosome analysis loop")
+    p.add_argument("--max-distance", type=int, default=None,
+                   help="windowed LD: only compute pairs at most this many "
+                   "kept sites apart (prunes the tile plan to an O(S*W) "
+                   "band; forces the tiled engine)")
+    p.add_argument("--max-distance-bp", type=int, default=None,
+                   help="windowed LD in site_map units — base pairs for "
+                   "VCF input (PLINK-style bp window; consistent with "
+                   "--ld-decay's distance axis), original column indices "
+                   "for FASTA.  Prunes the tile plan like --max-distance "
+                   "(composable: intersection) and forces the tiled "
+                   "engine; needs non-decreasing positions (use --chrom "
+                   "on whole-genome VCFs)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default; fails without a "
                    "card) or cpu (the kernels' plain PyTorch versions)")
@@ -159,6 +206,78 @@ def _not_ported(argv: list[str]) -> str | None:
         name = a.split("=", 1)[0]
         if name in NOT_PORTED:
             return name
+    return None
+
+
+def _chrom_range(args):
+    """``(chrom, pos_range)`` from --chrom / --region (``cli.py:271-279``;
+    their exclusivity is checked up front in :func:`main`)."""
+    if args.region is not None:
+        from .io.vcf import parse_region
+
+        return parse_region(args.region)
+    return args.chrom, None
+
+
+def _parse_sample_spec(spec: str | None) -> tuple[str, ...] | None:
+    """``--keep-samples`` / ``--exclude-samples`` SPEC -> names
+    (``cli.py:282-297``): ``@FILE`` reads one name per line (blank lines
+    and ``#`` comments skipped, the plink keep-file convention), anything
+    else is a comma-separated list."""
+    if spec is None:
+        return None
+    if spec.startswith("@"):
+        with open(spec[1:], encoding="utf-8") as fh:
+            names = [ln.strip() for ln in fh]
+        names = [n for n in names if n and not n.startswith("#")]
+    else:
+        names = [n.strip() for n in spec.split(",") if n.strip()]
+    if not names:
+        raise ValueError(f"empty sample list: {spec!r}")
+    return tuple(names)
+
+
+def _is_vcf(path) -> bool:
+    return str(path).endswith((".vcf", ".vcf.gz"))
+
+
+def _arg_errors(args) -> str | None:
+    """The region, cross and window conflicts the JAX CLI refuses before
+    any ingest (``cli.py:420-464``), as the message of the first."""
+    if args.chrom is not None and args.region is not None:
+        return ("--chrom and --region are mutually exclusive (a region "
+                "names its chromosome)")
+    for flag, val in (("--chrom", args.chrom), ("--region", args.region),
+                      ("--cross-regions", args.cross_regions)):
+        if val is not None and args.file is not None \
+                and not _is_vcf(args.file):
+            return (f"{flag} only applies to VCF input (FASTA has no "
+                    "chromosome column)")
+    if args.cross_regions is None:
+        return None
+    conflicts = [f for f, on in (
+        ("--chrom", args.chrom is not None),
+        ("--region", args.region is not None),
+        ("--max-distance", args.max_distance is not None),
+        ("--max-distance-bp", args.max_distance_bp is not None),
+        ("--stream-ingest", args.stream_ingest),
+        ("--list-chroms", args.list_chroms),
+    ) if on]
+    if conflicts:
+        return f"--cross-regions is exclusive with {conflicts[0]}"
+    if args.engine == "dense":
+        return ("--cross-regions needs the tiled engine (--engine "
+                f"{args.engine} computes the full triangle)")
+    if args.file is None:
+        return "--cross-regions needs --file"
+    if args.ld_decay is not None:
+        from .io.vcf import parse_region
+
+        if parse_region(args.cross_regions[0])[0] \
+                != parse_region(args.cross_regions[1])[0]:
+            return ("--ld-decay with --cross-regions needs both regions on "
+                    "ONE chromosome (POS distance between chromosomes is "
+                    "meaningless)")
     return None
 
 
@@ -228,13 +347,20 @@ def _prepare_streamed(args, timer):
 
     stream_cfg = DriverConfig(tile=args.tile, seq_chunk=args.seq_chunk)
     hk_mask = ld_mask = None
-    with timer.stage("ingest"):
-        if str(args.file).endswith((".vcf", ".vcf.gz")):
-            sm, site_map = prepare_vcf_streamed(args.file, stream_cfg)
-        else:
+    if _is_vcf(args.file):
+        chrom, pos_range = _chrom_range(args)
+        with timer.stage("ingest"):
+            sm, site_map = prepare_vcf_streamed(
+                args.file, stream_cfg, chrom=chrom, pos_range=pos_range,
+                keep_samples=args.keep_samples,
+                exclude_samples=args.exclude_samples)
+    else:
+        with timer.stage("ingest"):
             sm, site_map, hk_mask, ld_mask = prepare_fasta_streamed(
                 args.file, min_acgt=args.min_acgt,
-                min_variability=args.min_variability, cfg=stream_cfg)
+                min_variability=args.min_variability, cfg=stream_cfg,
+                keep_samples=args.keep_samples,
+                exclude_samples=args.exclude_samples)
     with timer.stage("weights"):
         if args.unweighted:
             weights = np.ones(sm.n_seqs, dtype=np.float32)
@@ -266,6 +392,7 @@ def main(argv=None, timer=None) -> int:
         ("--r2-hist", args.r2_hist is not None),
         ("--top", args.top is not None),
         ("--prune-r2", args.prune_r2 is not None),
+        ("--list-chroms", args.list_chroms),
     ) if on]
     if len(modes) > 1:
         print(f"error: {' and '.join(modes)} are mutually exclusive "
@@ -274,6 +401,16 @@ def main(argv=None, timer=None) -> int:
     if args.matrix_output is not None and args.r2_threshold is not None:
         print("warning: --matrix-output writes complete matrices; "
               "--r2-threshold is ignored in this mode", file=sys.stderr)
+    msg = _arg_errors(args)
+    if msg is not None:
+        print(f"error: {msg}", file=sys.stderr)
+        return 2
+    try:
+        args.keep_samples = _parse_sample_spec(args.keep_samples)
+        args.exclude_samples = _parse_sample_spec(args.exclude_samples)
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
 
     import torch
 
@@ -291,6 +428,22 @@ def main(argv=None, timer=None) -> int:
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False  # f32 contractions
     timer = timer or StageTimer()
+    if args.list_chroms:
+        # A query answered before any ingest (cli.py:469-485); like the JAX
+        # CLI it ignores --region and the sample flags (ROADMAP queue 3).
+        if args.file is None or not _is_vcf(args.file):
+            print("error: --list-chroms needs a VCF --file (FASTA has no "
+                  "chromosome column)", file=sys.stderr)
+            return 2
+        from .io.vcf import VcfError, list_chromosomes
+
+        try:
+            for c in list_chromosomes(args.file):
+                print(c)
+        except (VcfError, OSError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        return 0
     if args.file is None:
         print("error: --file is required", file=sys.stderr)
         return 2
@@ -302,11 +455,21 @@ def main(argv=None, timer=None) -> int:
     cfg = WldConfig(min_acgt=args.min_acgt,
                     min_variability=args.min_variability,
                     unweighted=args.unweighted,
-                    r2_threshold=args.r2_threshold)
+                    r2_threshold=args.r2_threshold,
+                    chrom=args.chrom, region=args.region,
+                    keep_samples=args.keep_samples,
+                    exclude_samples=args.exclude_samples)
     t0 = time.monotonic()
+    cross_split = None
     try:
         if args.stream_ingest:
             res = _prepare_streamed(args, timer)
+        elif args.cross_regions is not None:
+            from .pipeline import prepare_vcf_cross
+
+            res, cross_split = prepare_vcf_cross(
+                args.file, cfg, args.cross_regions[0],
+                args.cross_regions[1], timer=timer, device=device)
         else:
             res = prepare(args.file, cfg, timer=timer, device=device)
     except (ValueError, OSError) as e:   # VcfError, ragged FASTA, missing
@@ -316,6 +479,18 @@ def main(argv=None, timer=None) -> int:
         n, s = res.alignment.n_seqs, res.alignment.n_sites
     else:
         n, s = res.alignment.shape
+
+    if args.max_distance_bp is not None:
+        # Before any upload (cli.py:733-743): the session's own check
+        # would raise after the set-up work.
+        sm = np.asarray(res.site_map)
+        if (np.diff(sm) < 0).any() or (
+                sm.size and (sm.min() < 0
+                             or sm.max() > np.iinfo(np.int32).max)):
+            print("error: --max-distance-bp needs non-decreasing site "
+                  "positions that fit int32 (multi-chromosome input? "
+                  "run per chromosome with --chrom)", file=sys.stderr)
+            return 2
 
     if args.weights_output:
         with open_text_output(args.weights_output) as fh:
@@ -335,8 +510,11 @@ def main(argv=None, timer=None) -> int:
     engine = args.engine
     if engine == "auto":
         engine = "dense" if s <= 2048 else "tiled"
-    if args.stream_ingest:
-        engine = "tiled"   # the buffer is laid out for the tiled session
+    if args.max_distance is not None or args.max_distance_bp is not None \
+            or args.cross_regions is not None or args.stream_ingest:
+        # The window and rectangle masks live in the tiled session, and a
+        # streamed buffer is laid out for it (cli.py:823-828).
+        engine = "tiled"
     if args.weight_quant != "none" and engine != "tiled" \
             and args.matrix_output is None:
         print(f"warning: --weight-quant only applies to the tiled engine; "
@@ -346,11 +524,16 @@ def main(argv=None, timer=None) -> int:
     from .runtime.driver import (DriverConfig, LdSession, run_to_tsv,
                                  validate_decay_edges, validate_hist_edges)
 
+    # Every tiled session of this run, records and analytics alike, takes
+    # the window and cross fields from here (cli.py:300-324).
     dcfg = DriverConfig(tile=args.tile,
                         tiles_per_shard_batch=args.tiles_per_batch,
                         r2_threshold=args.r2_threshold,
                         seq_chunk=args.seq_chunk,
-                        weight_quant=args.weight_quant)
+                        weight_quant=args.weight_quant,
+                        max_site_distance=args.max_distance,
+                        max_bp_distance=args.max_distance_bp,
+                        cross_split=cross_split)
 
     def session(r2_threshold=None) -> LdSession:
         """The tiled session of the analytics modes, which set their own

@@ -3,8 +3,8 @@ streaming reader into the padded site-major layout.
 
 Copy of ``read_fasta_with_names`` (the native dispatch of
 ``weightedld_tpu/io/fasta.py:20-35``), ``read_fasta_with_names_python``,
-``read_fasta``, ``iter_fasta_rows``, ``scan_fasta`` (``:185-254``, without
-sample subsetting), ``read_fasta_site_major`` (``:256-314``) and their
+``read_fasta``, ``iter_fasta_rows``, ``scan_fasta`` (``:185-254``) and
+``read_fasta_site_major`` (``:256-314``) with sample subsetting, and their
 helpers (``:38-101``); the Rust-binary framing is not ported.
 BioPython / reference-Python semantics
 (``WeightedLD.py:21-41``): a record is every line between one ``>`` header
@@ -100,14 +100,26 @@ def iter_fasta_rows(path: str | Path):
 
 
 def scan_fasta(path: str | Path, block_rows: int = 1024,
-               ) -> tuple[int, int, np.ndarray]:
+               keep_samples: tuple[str, ...] | None = None,
+               exclude_samples: tuple[str, ...] | None = None,
+               ) -> tuple[int, int, np.ndarray, np.ndarray | None]:
     """Pass 1 of the two-pass FASTA ingest: ``(n_seqs, n_sites, counts
-    [S, 5])``, the per-site histograms over codes 0..4, without the
-    ``[N, S]`` matrix (peak memory: one ``[block_rows, S]`` row block).
-    Rectangularity is checked with the batch reader's wording; pass 2
-    re-validates every record."""
+    [S, 5], row_mask)``, the per-site histograms over codes 0..4, without
+    the ``[N, S]`` matrix (peak memory: one ``[block_rows, S]`` row block).
+    Rectangularity is checked over every record with the batch reader's
+    wording; pass 2 re-validates every record.
+
+    ``keep_samples`` / ``exclude_samples`` subset by record name during
+    this pass: skipped records count in neither ``n_seqs`` nor ``counts``
+    (subset before the masks, as the pipeline does); unknown names and
+    fewer than 2 survivors are errors; ``row_mask`` (bool per record, None
+    without subsetting) drives pass 2."""
     from ..core.sites import site_histogram_host
 
+    subsetting = keep_samples is not None or exclude_samples is not None
+    ks = set(keep_samples) if keep_samples is not None else None
+    es = set(exclude_samples) if exclude_samples is not None else None
+    names: list[str] = []
     n_sites = None
     n_seqs = 0
     counts = None
@@ -120,7 +132,8 @@ def scan_fasta(path: str | Path, block_rows: int = 1024,
             counts = h if counts is None else counts + h
             block.clear()
 
-    for idx, row in iter_fasta_rows(path):
+    for idx, (name, raw) in enumerate(_iter_fasta_raw(path)):
+        row = encode_sequence_bytes(raw)
         if n_sites is None:
             n_sites = len(row)
         elif len(row) != n_sites:
@@ -128,14 +141,26 @@ def scan_fasta(path: str | Path, block_rows: int = 1024,
                 f"ragged alignment: sequence {idx} has length {len(row)}, "
                 f"expected {n_sites}"
             )
+        if subsetting:
+            names.append(name)
+            if (ks is not None and name not in ks) \
+                    or (es is not None and name in es):
+                continue
         n_seqs += 1
         block.append(row)
         if len(block) >= block_rows:
             flush()
     flush()
-    if (n_sites or 0) == 0 or n_seqs == 0:
+    row_mask = None
+    if subsetting and names:
+        # The pipeline's validation, and a mask equal to the per-record
+        # decisions above.
+        from ..pipeline import _sample_row_mask
+
+        row_mask = _sample_row_mask(names, keep_samples, exclude_samples)
+    if (n_sites or 0) == 0 or (not subsetting and n_seqs == 0):
         raise ValueError(f"{path}: no sequences found")
-    return n_seqs, n_sites, counts
+    return n_seqs, n_sites, counts, row_mask
 
 
 def read_fasta_site_major(
@@ -144,12 +169,14 @@ def read_fasta_site_major(
     scan: tuple[int, int],
     s_pad: int | None = None,
     n_pad: int | None = None,
+    row_mask: np.ndarray | None = None,
 ) -> np.ndarray:
     """Pass 2: decode each record into its COLUMN of a padded site-major
     buffer of the LD-kept sites, ``codes[s, k] == trimmed_alignment[k, s]``
-    with UNKNOWN padding.  ``scan`` is pass 1's ``(n_seqs, n_sites)``; a
-    record that disagrees with it raises "file changed between ingest
-    passes"."""
+    with UNKNOWN padding.  ``scan`` is pass 1's ``(n_seqs, n_sites)`` (with
+    ``row_mask``, n_seqs counts the kept records, which are the only ones
+    decoded); a record that disagrees with it raises "file changed between
+    ingest passes"."""
     ld_mask = np.asarray(ld_mask, dtype=bool)
     n_seqs, n_sites = scan
     if len(ld_mask) != n_sites:
@@ -168,7 +195,13 @@ def read_fasta_site_major(
     k = 0
     b = 0
     full_keep = bool(ld_mask.all())
-    for _idx, row in iter_fasta_rows(path):
+    for idx, row in iter_fasta_rows(path):
+        if row_mask is not None and (idx >= len(row_mask)
+                                     or not row_mask[idx]):
+            if idx >= len(row_mask) or len(row) != n_sites:
+                raise ValueError(
+                    f"{path}: file changed between ingest passes")
+            continue
         if len(row) != n_sites or k + b >= n_seqs:
             raise ValueError(f"{path}: file changed between ingest passes")
         block[b] = row if full_keep else row[ld_mask]

@@ -1,15 +1,20 @@
 """End-to-end pipeline glue: ingest -> mask -> weight -> LD.
 
-Counterpart of ``WldConfig`` (the fields this slice reads), ``prepare_fasta``,
-``prepare_vcf``, ``prepare`` and ``run`` from ``weightedld_tpu/pipeline.py:
-53-83, 187-249, 321-340``, mirroring the reference driver
-(``WeightedLD.py:287-308, 382-402``):
+Counterpart of ``WldConfig`` (the fields this port reads), the sample
+subsetting helpers, ``_resolve_vcf_filters``, ``prepare_fasta``,
+``prepare_vcf``, ``regions_overlap``, ``prepare_vcf_cross``, ``prepare``
+and ``run`` from ``weightedld_tpu/pipeline.py:53-340`` (the Rust-framed
+FASTA reader, ``--weighting paper`` and ``site_stats`` are not ported),
+mirroring the reference driver (``WeightedLD.py:287-308, 382-402``):
 
 * FASTA: both site masks on the host in float64, the alignment trimmed to
   the LD mask, Henikoff weights on the LD-trimmed alignment (the reference
   CLI convention);
 * VCF: no site masking, weights on the full haplotype matrix;
-* ``unweighted``: unit weights.
+* ``unweighted``: unit weights;
+* a VCF read can keep one chromosome (``chrom``) or one samtools-style
+  region (``region``), and both formats can keep or drop named samples
+  (``keep_samples`` / ``exclude_samples``) before masks and weights.
 
 Weights are the float64 host Henikoff weights (bit-equal to the reference);
 inputs above 200M cells are weighted on the pipeline's device (default
@@ -29,7 +34,7 @@ from .core.henikoff import henikoff_weights_host, henikoff_weights_large
 from .core.ld_dense import LdRecords, extract_records, ld_all_pairs_dense
 from .core.sites import compute_variable_sites_host
 from .device import resolve_device
-from .io.fasta import read_fasta
+from .io.fasta import read_fasta, read_fasta_with_names
 from .io.vcf import read_vcf
 
 # Above this many cells the weights are computed on the device in site
@@ -53,6 +58,103 @@ class WldConfig:
     unweighted: bool = False       # WeightedLD.py:414
     max_minor: float = 1.0         # Rust-only, main.rs:37-42 (1.0 = off)
     r2_threshold: float | None = None  # Rust-only, main.rs:45-49 (None = all)
+    chrom: str | None = None       # VCF only: keep one chromosome's records
+                                   # (the reference ignores CHROM, mixing
+                                   # whole-genome POS into one axis)
+    region: str | None = None      # VCF only: "CHR" or "CHR:START-END"
+                                   # (1-based inclusive POS window,
+                                   # io.vcf.parse_region); exclusive with
+                                   # `chrom`
+    keep_samples: tuple[str, ...] | None = None     # restrict the analysis
+                                   # to these FASTA record names / VCF
+                                   # header samples (both haplotypes of a
+                                   # kept sample)
+    exclude_samples: tuple[str, ...] | None = None  # drop these names
+                                   # (applied after keep_samples)
+
+
+def _sample_row_mask(row_names: list[str],
+                     keep: tuple[str, ...] | None,
+                     exclude: tuple[str, ...] | None) -> np.ndarray:
+    """Boolean row mask from keep/exclude name sets (copy of
+    ``pipeline.py:85-113``): every named sample must exist in the input;
+    ``keep`` restricts, then ``exclude`` drops; row order is preserved;
+    fewer than 2 surviving rows is an error."""
+    known = set(row_names)
+    for group, flag in ((keep, "keep_samples"), (exclude, "exclude_samples")):
+        unknown = sorted(set(group or ()) - known)
+        if unknown:
+            raise ValueError(
+                f"{flag}: unknown sample name(s): {', '.join(unknown)}")
+    mask = np.ones(len(row_names), dtype=bool)
+    if keep is not None:
+        ks = set(keep)
+        mask &= np.fromiter((n in ks for n in row_names), dtype=bool,
+                            count=len(row_names))
+    if exclude is not None:
+        es = set(exclude)
+        mask &= np.fromiter((n not in es for n in row_names), dtype=bool,
+                            count=len(row_names))
+    if int(mask.sum()) < 2:
+        raise ValueError(
+            "fewer than 2 sequences remain after sample subsetting")
+    return mask
+
+
+def _vcf_row_names(path: str | Path, n_haps: int) -> list[str]:
+    """Per-row sample names of a VCF alignment (``pipeline.py:116-136``):
+    row ``k`` belongs to sample ``(n_haps-1-k) // 2`` under the reference's
+    rot90 order (phased diploid), or ``n_haps-1-k`` for a haploid file;
+    mixed ploidy is refused."""
+    from .io.vcf import vcf_sample_names
+
+    names = vcf_sample_names(path)
+    if n_haps == 2 * len(names):
+        return [names[(n_haps - 1 - k) // 2] for k in range(n_haps)]
+    if n_haps == len(names):
+        return [names[n_haps - 1 - k] for k in range(n_haps)]
+    raise ValueError(
+        f"cannot map {n_haps} haplotype rows to {len(names)} header "
+        "samples (mixed ploidy?); sample subsetting needs uniformly "
+        "diploid or uniformly haploid records"
+    )
+
+
+def _wants_subset(cfg: WldConfig) -> bool:
+    return cfg.keep_samples is not None or cfg.exclude_samples is not None
+
+
+def _subset_vcf_rows(path: str | Path, alignment: np.ndarray,
+                     cfg: WldConfig) -> np.ndarray:
+    """``cfg``'s sample subsetting of a VCF haplotype matrix (no-op without
+    one), the one definition the prepare and cross paths share."""
+    if not _wants_subset(cfg):
+        return alignment
+    mask = _sample_row_mask(_vcf_row_names(path, alignment.shape[0]),
+                            cfg.keep_samples, cfg.exclude_samples)
+    return alignment[mask]
+
+
+def _read_fasta_subset(path: str | Path, cfg: WldConfig) -> np.ndarray:
+    """FASTA ingest with ``cfg``'s sample subsetting (the Python framing of
+    ``pipeline.py:150-172``; names are read only when subsetting)."""
+    if not _wants_subset(cfg):
+        return read_fasta(path)
+    alignment, names = read_fasta_with_names(path)
+    return alignment[_sample_row_mask(names, cfg.keep_samples,
+                                      cfg.exclude_samples)]
+
+
+def _resolve_vcf_filters(cfg: WldConfig):
+    """``(chrom, pos_range)`` from cfg.chrom / cfg.region (exclusive)."""
+    if cfg.region is None:
+        return cfg.chrom, None
+    if cfg.chrom is not None:
+        raise ValueError("chrom and region are mutually exclusive "
+                         "(a region names its chromosome)")
+    from .io.vcf import parse_region
+
+    return parse_region(cfg.region)
 
 
 @dataclass
@@ -70,8 +172,11 @@ def prepare_fasta(path: str | Path, cfg: WldConfig, timer=None,
     from .runtime.profiling import StageTimer
 
     timer = timer or StageTimer()
+    if cfg.region is not None:
+        raise ValueError("region only applies to VCF input (FASTA has no "
+                         "chromosome/position columns)")
     with timer.stage("ingest"):
-        alignment = read_fasta(path)
+        alignment = _read_fasta_subset(path, cfg)
     with timer.stage("mask"):
         hk_mask, ld_mask = compute_variable_sites_host(
             alignment, cfg.min_acgt, cfg.min_variability, cfg.max_minor)
@@ -91,8 +196,10 @@ def prepare_vcf(path: str | Path, cfg: WldConfig, timer=None,
     from .runtime.profiling import StageTimer
 
     timer = timer or StageTimer()
+    chrom, pos_range = _resolve_vcf_filters(cfg)
     with timer.stage("ingest"):
-        alignment, site_map = read_vcf(path)
+        alignment, site_map = read_vcf(path, chrom=chrom, pos_range=pos_range)
+        alignment = _subset_vcf_rows(path, alignment, cfg)
     with timer.stage("weights"):
         if cfg.unweighted:
             weights = np.ones(alignment.shape[0], dtype=np.float32)
@@ -100,6 +207,68 @@ def prepare_vcf(path: str | Path, cfg: WldConfig, timer=None,
             weights = _weights_for(alignment, device)
     return PipelineResult(alignment=alignment, site_map=site_map,
                           weights=weights)
+
+
+def regions_overlap(spec_a: str, spec_b: str) -> bool:
+    """Whether two ``CHR[:LO-HI]`` regions can share a site: the same
+    chromosome with intersecting, or unbounded, POS windows."""
+    from .io.vcf import parse_region
+
+    ca, ra = parse_region(spec_a)
+    cb, rb = parse_region(spec_b)
+    if ca != cb:
+        return False
+    if ra is None or rb is None:
+        return True
+    return ra[0] <= rb[1] and rb[0] <= ra[1]
+
+
+def prepare_vcf_cross(path: str | Path, cfg: WldConfig,
+                      spec_a: str, spec_b: str, timer=None,
+                      device: str | torch.device | None = None,
+                      ) -> tuple[PipelineResult, int]:
+    """Inter-region preparation for a rectangular LD scan (copy of
+    ``pipeline.py:266-318``): regions A and B of one VCF, each read through
+    the Python reader (one full file pass per region), laid out as A ++ B;
+    returns ``(result, n_a)``, ``n_a`` the layout split for
+    ``DriverConfig.cross_split``.  Henikoff weights over the combined
+    matrix; sample subsetting applies to both blocks; overlapping regions
+    are refused (their sites would pair with their own copies)."""
+    from .io.vcf import parse_region
+    from .runtime.profiling import StageTimer
+
+    timer = timer or StageTimer()
+    if cfg.chrom is not None or cfg.region is not None:
+        raise ValueError("cross-regions is exclusive with chrom/region "
+                         "(it names its own two regions)")
+    if regions_overlap(spec_a, spec_b):
+        raise ValueError(
+            f"cross regions {spec_a!r} and {spec_b!r} overlap — their "
+            "sites would pair against their own copies; pick disjoint "
+            "POS windows (or different chromosomes)")
+    ca, ra = parse_region(spec_a)
+    cb, rb = parse_region(spec_b)
+    with timer.stage("ingest"):
+        aln_a, sm_a = read_vcf(path, chrom=ca, pos_range=ra)
+        aln_b, sm_b = read_vcf(path, chrom=cb, pos_range=rb)
+        if aln_a.shape[0] != aln_b.shape[0]:
+            raise ValueError(
+                f"regions decode different haplotype counts "
+                f"({aln_a.shape[0]} vs {aln_b.shape[0]}) — mixed-ploidy "
+                "records?")
+        if _wants_subset(cfg):
+            mask = _sample_row_mask(_vcf_row_names(path, aln_a.shape[0]),
+                                    cfg.keep_samples, cfg.exclude_samples)
+            aln_a, aln_b = aln_a[mask], aln_b[mask]
+        alignment = np.concatenate([aln_a, aln_b], axis=1)
+        site_map = np.concatenate([sm_a, sm_b])
+    with timer.stage("weights"):
+        if cfg.unweighted:
+            weights = np.ones(alignment.shape[0], dtype=np.float32)
+        else:
+            weights = _weights_for(alignment, device)
+    return PipelineResult(alignment=alignment, site_map=site_map,
+                          weights=weights), int(aln_a.shape[1])
 
 
 def prepare(path: str | Path, cfg: WldConfig | None = None, timer=None,
