@@ -147,6 +147,29 @@ result line):
              ``--max-distance 500`` (windowed-packed): byte-identical TSVs.
              Every run prints its stages, launches, the scan's pairs/s
              over the pairs in its set and its plan tiles, with the card.
+9. flags   — the flags of the last CLI slice at full size (writes its own
+             inputs when run alone, ``--phases build,flags``): the
+             headline's default TSV at r² > 0.1, then ``--compat rust``
+             on the headline and on the ambiguous FASTA (the Rust
+             reader, the hybrid): paper weights computed on the card
+             within rtol 2e-6 of the CPU float32 ones, the TSV equal to
+             ``run_to_tsv`` fed those weights; ``--out-format plink``
+             (the default TSV's pairs and values row for row);
+             ``--sort`` (its rows lexsorted); ``--checkpoint``
+             interrupted after batch 3 (a patch of ``LdSession.stream``
+             in this script) and resumed, equal to an uninterrupted
+             checkpointed run, plain and ``.gz``, through the CLI
+             (``ld_majmin_planes``) and ``run_to_tsv(preplaned="off")``
+             (``ld_majmin_codes``); ``--save-prepared`` then
+             ``--load-prepared`` (the same bytes, no ingest or weights
+             stage); ``--site-stats`` on the ambiguous FASTA;
+             ``--profile-dir`` (a trace naming ``ld_majmin_wgmma``, the
+             same bytes); ``--progress-bar`` (100 % once);
+             ``--engine reference`` against dense on 64 x 200; CPU vs
+             card under ``--compat rust`` on 4,096 sites.  Every run
+             prints its stages and wall with the card; the phase fails
+             unless its runs launched ``ld_majmin_planes``,
+             ``ld_majmin_codes`` and ``ld_general``.
 
 Not in the default run: ``--phases profile`` times the headline
 session's ``stream`` and ``summarize`` scans interleaved, one batch's
@@ -173,9 +196,9 @@ preplaned ``kernel="general"`` run and ``ld_general_unit`` from its
 runs of the analytics and ambiguous phases, the factorized split_bf16
 and bf16-exact variants from the analytics phase's summarize runs, and the
 general ones from the ambiguous phase's ``kernel="general"`` runs (2c).
-The windows phase zeroes the counters before each of its runs as well,
-requires the kernels each run must launch, and prints its counts on its
-own lines; the kernels line does not take them.
+The windows and flags phases zero the counters before each of their runs
+as well, require the kernels each run must launch, and print their counts
+on their own lines; the kernels line does not take them.
 Launches of the kernel-vs-plain checks (every weighted entry in lo_int8
 too, the factorized ones in split_bf16 and bf16-exact, each on a full
 batch of the main path's own session) are not counted.  The last three
@@ -2462,6 +2485,433 @@ def phase_windows(tmp: Path) -> dict:
     return err
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the flags of the last CLI slice
+# ---------------------------------------------------------------------------
+
+# The flags phase: the batch after which a checkpointed run is interrupted,
+# the --compat rust threshold and digits, and the --engine reference slice.
+FLAGS_STOP_AFTER, RUST_THR, RUST_NDIGITS = 3, 0.1, 3
+REF_SEQS, REF_SITES = 64, 200
+# The kernel a --profile-dir trace of the headline must name.
+PROFILE_KERNEL = "ld_majmin_wgmma"
+
+
+class _Stop(Exception):
+    """The test-only interruption of a checkpointed scan."""
+
+
+def _flags_log(msg: str) -> None:
+    log(f"[flags] {msg}")
+
+
+def _flags_run(label: str, argv: list[str], stderr: bool = False):
+    """One CLI run of the flags phase with its stage times, wall and
+    launches printed: ``(launch counts, stage spans, wall, stderr text)``."""
+    import contextlib
+    import io
+
+    from weightedld_tpu_torch.runtime.profiling import StageTimer
+
+    timer = StageTimer()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with (contextlib.redirect_stderr(buf) if stderr
+          else contextlib.nullcontext()):
+        counts = _drive(argv, timer=timer)
+    wall = time.monotonic() - t0
+    _stage_log(label, timer, wall, "flags")
+    _flags_log(f"{label}: kernel launches "
+               f"{ {k: v for k, v in counts.items() if v} }")
+    return counts, dict(timer.spans), wall, buf.getvalue()
+
+
+def _interrupted(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with ``LdSession.stream`` raising after
+    ``FLAGS_STOP_AFTER`` batches of a scan that starts at batch 0 (a
+    test-only patch of this script; the package has no such switch)."""
+    import weightedld_tpu_torch.runtime.driver as drv
+
+    orig = drv.LdSession.stream
+
+    def limited(*a, **kw):
+        n = 0
+        for item in orig(*a, **kw):
+            yield item
+            n += 1
+            if n >= FLAGS_STOP_AFTER and not kw.get("start_batch"):
+                raise _Stop
+
+    drv.LdSession.stream = limited
+    try:
+        fn(*args, **kwargs)
+    except _Stop:
+        pass
+    else:
+        raise AssertionError("the checkpointed run was not interrupted")
+    finally:
+        drv.LdSession.stream = orig
+
+
+def _need_launch(counts: dict, names: tuple, label: str) -> None:
+    missing = [n for n in names if not counts.get(n)]
+    if missing:
+        raise AssertionError(f"{label} launched no {missing}: {counts}")
+
+
+def _tsv_lines(path: Path) -> list[str]:
+    import gzip
+
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "rt") as fh:
+        return fh.read().splitlines()
+
+
+def _hold_checkpoint(label: str, run, out: Path) -> None:
+    """``run(out_path)`` interrupted after ``FLAGS_STOP_AFTER`` batches and
+    run again must write the bytes of an uninterrupted checkpointed run."""
+    ckpt = out.with_suffix(out.suffix + ".ckpt.json")
+    part = out.with_name("part_" + out.name)
+    part_ckpt = part.with_suffix(part.suffix + ".ckpt.json")
+    t0 = time.monotonic()
+    run(out)
+    full_wall = time.monotonic() - t0
+    if ckpt.exists():
+        raise AssertionError(f"{label}: {ckpt.name} left after the run")
+    _interrupted(run, part)
+    state = json.loads(part_ckpt.read_text())
+    if state["next_batch"] != FLAGS_STOP_AFTER \
+            or state["byte_offset"] != part.stat().st_size:
+        raise AssertionError(f"{label}: checkpoint state {state}")
+    t0 = time.monotonic()
+    run(part)
+    resume_wall = time.monotonic() - t0
+    if part_ckpt.exists():
+        raise AssertionError(f"{label}: {part_ckpt.name} left after resume")
+    if part.read_bytes() != out.read_bytes():
+        raise AssertionError(f"{label}: the resumed file differs from the "
+                             "uninterrupted checkpointed run")
+    _flags_log(f"{label}: interrupted after batch {FLAGS_STOP_AFTER} "
+               f"({state['n_records']} records, {state['byte_offset']} "
+               f"bytes) and resumed: byte-identical to the uninterrupted "
+               f"run ({out.stat().st_size} bytes); walls: uninterrupted "
+               f"{full_wall:.3f}s, resume {resume_wall:.3f}s")
+
+
+def _hold_paper_weights(res, aln: np.ndarray, label: str) -> None:
+    """The card's paper weights within rtol 2e-6 of the CPU float32
+    ones."""
+    from weightedld_tpu_torch.core.henikoff import henikoff_weights_paper
+
+    cpu = henikoff_weights_paper(aln, device="cpu").numpy()
+    rel = float(np.max(np.abs(res.weights / cpu - 1.0)))
+    if rel > 2e-6:
+        raise AssertionError(f"{label}: card paper weights {rel:.3g} "
+                             "relative from the CPU's")
+    _flags_log(f"{label}: card paper weights within {rel:.3g} relative of "
+               f"the CPU float32 ones ({int((res.weights != cpu).sum())} of "
+               f"{len(cpu)} differ in bits)")
+
+
+def phase_flags(tmp: Path) -> dict:
+    """The flags of the last CLI slice at full size on the card; returns
+    the launch counts of its runs."""
+    import contextlib
+    import io
+
+    import torch
+
+    from weightedld_tpu_torch import cli
+    from weightedld_tpu_torch.pipeline import WldConfig, prepare, site_stats
+    from weightedld_tpu_torch.runtime.cache import load_prepared
+    from weightedld_tpu_torch.runtime.driver import DriverConfig, run_to_tsv
+
+    vcf, aln, _seeds = headline_vcf(tmp, "flags")
+    fasta, amb, _trips, _dirty = ambiguous_fasta(tmp, "flags")
+    _flags_log(card_line())
+    launches: dict = {}
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    base = ["--file", str(vcf), "--r2-threshold", str(RUST_THR)]
+
+    # (1) The default TSV at r2 > 0.1: the bytes every variant is held to.
+    tsv = tmp / "flags_default.tsv"
+    counts, spans_plain, wall_plain, _ = _flags_run(
+        "default", base + ["--pair-output", str(tsv)])
+    _need_launch(counts, ("ld_majmin_planes",), "the default run")
+    add(counts)
+    rows = _tsv_lines(tsv)
+
+    # (2) --compat rust: paper weights on the card, 3 dp, r2 > 0.1; the TSV
+    # equals run_to_tsv fed the same weights.  The headline, then the
+    # ambiguous FASTA (the Rust reader: one row per line, the terminator an
+    # UNKNOWN column; the hybrid split).
+    for label, src, cfg in (
+            ("compat-rust headline", vcf, WldConfig(weighting="paper")),
+            ("compat-rust ambiguous", fasta,
+             WldConfig(weighting="paper", fasta_reader="rust",
+                       max_minor=0.5))):
+        out = tmp / f"flags_{label.split()[1]}_rust.tsv"
+        counts, _spans, _wall, _ = _flags_run(
+            label, ["--file", str(src), "--compat", "rust",
+                    "--pair-output", str(out)])
+        add(counts)
+        want_kernels = ("ld_majmin_planes",) if src == vcf \
+            else ("ld_majmin_planes", "ld_general")
+        _need_launch(counts, want_kernels, label)
+        res = prepare(src, cfg, device="cuda")
+        _hold_paper_weights(res, res.alignment, label)
+        ref = tmp / "flags_rust_ref.tsv"
+        run_to_tsv(res.alignment, res.weights, res.site_map, ref,
+                   DriverConfig(r2_threshold=RUST_THR), device="cuda",
+                   ndigits=RUST_NDIGITS, checkpoint=False)
+        if ref.read_bytes() != out.read_bytes():
+            raise AssertionError(f"{label}: the CLI's TSV differs from "
+                                 "run_to_tsv fed the same weights")
+        n_rec = len(_tsv_lines(out)) - 1
+        _flags_log(f"{label}: {n_rec} records at 3 dp, byte-identical to "
+                   f"run_to_tsv fed the card's paper weights "
+                   f"(S = {res.alignment.shape[1]})")
+
+    # (3) --out-format plink: the default TSV's pairs and values, row for
+    # row, with CHROM 1 and the VCF's rs ids.
+    ld = tmp / "flags.ld"
+    counts, _spans, _wall, _ = _flags_run(
+        "plink", base + ["--out-format", "plink", "--pair-output", str(ld)])
+    add(counts)
+    plink = _tsv_lines(ld)
+    if plink[0] != "CHR_A\tBP_A\tSNP_A\tCHR_B\tBP_B\tSNP_B\tR2\tDP\tD" \
+            or len(plink) != len(rows):
+        raise AssertionError(f"plink: {len(plink)} lines against "
+                             f"{len(rows)}, header {plink[0]!r}")
+    for p_row, t_row in zip(plink[1:], rows[1:]):
+        ca, ba, sa, cb, bb, sb, r2, dp, d = p_row.split("\t")
+        pa, pb, d_t, dp_t, r2_t = t_row.split("\t")
+        if (ca, cb, ba, bb, sa, sb, r2, dp, d) != (
+                "1", "1", pa, pb, f"rs{pa}", f"rs{pb}", r2_t, dp_t, d_t):
+            raise AssertionError(f"plink row {p_row!r} against {t_row!r}")
+    _flags_log(f"plink: {len(plink) - 1} rows, the default TSV's pairs "
+               "and values row for row")
+
+    # (4) --sort: the default TSV's rows in (posa, posb) order.
+    srt = tmp / "flags_sorted.tsv"
+    counts, _spans, _wall, _ = _flags_run(
+        "sort", base + ["--sort", "--pair-output", str(srt)])
+    add(counts)
+    body = rows[1:]
+    key = np.lexsort((np.array([int(r.split("\t", 2)[1]) for r in body]),
+                      np.array([int(r.split("\t", 1)[0]) for r in body])))
+    if _tsv_lines(srt) != rows[:1] + [body[i] for i in key]:
+        raise AssertionError("--sort: not the default TSV's rows lexsorted")
+    _flags_log(f"sort: {len(body)} rows, the default TSV's lexsorted")
+
+    # (5) --checkpoint through the CLI (the preplaned entry), plain and .gz,
+    # and through run_to_tsv(preplaned="off") (the codes entry).
+    ck_spans = {}
+    for suffix in (".tsv", ".tsv.gz"):
+        def cli_run(path, suffix=suffix):
+            timer = None
+            if suffix == ".tsv":
+                from weightedld_tpu_torch.runtime.profiling import StageTimer
+
+                timer = ck_spans.setdefault(path.name, StageTimer())
+            rc = cli.main(base + ["--checkpoint", "--pair-output",
+                                  str(path)], timer=timer)
+            if rc != 0:
+                raise RuntimeError(f"checkpointed CLI run exited {rc}")
+
+        out = tmp / f"flags_ckpt{suffix}"
+        _, counts = _counted(_hold_checkpoint, f"checkpoint CLI {suffix}",
+                             cli_run, out)
+        _need_launch(counts, ("ld_majmin_planes",),
+                     f"the checkpointed CLI runs ({suffix})")
+        add(counts)
+        if suffix == ".tsv" and out.read_bytes() != tsv.read_bytes():
+            raise AssertionError("the checkpointed TSV differs from the "
+                                 "default run's")
+    for name, timer in ck_spans.items():
+        for stage, sec in timer.spans.items():
+            _flags_log(f"checkpoint CLI {name}: stage {stage:<12} {sec:.3f}s")
+
+    # (6) --save-prepared, then --load-prepared: the same bytes, without
+    # the ingest and weights stages.
+    cache = tmp / "flags_prepared.npz"
+    saved = tmp / "flags_saved.tsv"
+    _c, spans_save, wall_save, _ = _flags_run(
+        "save-prepared", base + ["--save-prepared", str(cache),
+                                 "--pair-output", str(saved)])
+    loaded = tmp / "flags_loaded.tsv"
+    counts, spans_load, wall_load, _ = _flags_run(
+        "load-prepared", ["--load-prepared", str(cache), "--r2-threshold",
+                          str(RUST_THR), "--pair-output", str(loaded)])
+    add(counts)
+    for out in (saved, loaded):
+        if out.read_bytes() != tsv.read_bytes():
+            raise AssertionError(f"{out.name} differs from the default TSV")
+    skipped = {k: round(spans_plain.get(k, 0.0), 3)
+               for k in ("ingest", "weights")}
+    _flags_log(f"save/load: same bytes; walls: default {wall_plain:.3f}s, "
+               f"--save-prepared {wall_save:.3f}s (cache "
+               f"{cache.stat().st_size / 1e6:.1f} MB), --load-prepared "
+               f"{wall_load:.3f}s; skipped spans {skipped}; load run's "
+               f"stages {sorted(spans_load)}")
+    if "ingest" in spans_load or "weights" in spans_load:
+        raise AssertionError("--load-prepared ran an ingest or weights stage")
+
+    res, _prep = load_prepared(cache)
+    for suffix in (".tsv", ".tsv.gz"):
+        def codes_run(path):
+            run_to_tsv(res.alignment, res.weights, res.site_map, path,
+                       DriverConfig(r2_threshold=RUST_THR,
+                                    preplaned="off"),
+                       device="cuda", checkpoint=True)
+
+        out = tmp / f"flags_codes{suffix}"
+        _, counts = _counted(_hold_checkpoint,
+                             f"checkpoint run_to_tsv codes {suffix}",
+                             codes_run, out)
+        _need_launch(counts, ("ld_majmin_codes",),
+                     f"the codes-entry checkpointed runs ({suffix})")
+        add(counts)
+        if suffix == ".tsv" and out.read_bytes() != tsv.read_bytes():
+            raise AssertionError("the codes entry's checkpointed TSV differs "
+                                 "from the default run's")
+
+    # (7) --site-stats on the ambiguous FASTA: one row per column, the
+    # verdicts of the pipeline's masks.
+    stats_tsv = tmp / "flags_sites.tsv"
+    _flags_run("site-stats", ["--file", str(fasta), "--site-stats",
+                              str(stats_tsv)])
+    st_rows = [r.split("\t") for r in _tsv_lines(stats_tsv)[1:]]
+    st = site_stats(fasta, WldConfig())
+    pres = prepare(fasta, WldConfig(), device="cuda")
+    if len(st_rows) != S_AMB or [int(r[0]) for r in st_rows] \
+            != list(range(S_AMB)) or not np.array_equal(
+                np.array([r[5] == "1" for r in st_rows]), pres.ld_mask) \
+            or not np.array_equal(st["hk"], pres.hk_mask):
+        raise AssertionError("--site-stats rows disagree with the masks")
+    cov = (amb < 4).mean(axis=0)
+    if not np.allclose([float(r[1]) for r in st_rows], cov, atol=5e-5):
+        raise AssertionError("--site-stats coverage disagrees")
+    _flags_log(f"site-stats: {len(st_rows)} rows, {int(pres.ld_mask.sum())}"
+               f" LD sites, hk/ld verdicts equal the pipeline's masks")
+
+    # (8) --profile-dir: a trace that names the kernel, and the bytes of
+    # the run without it.
+    prof_dir = tmp / "flags_prof"
+    prof = tmp / "flags_prof.tsv"
+    counts, spans_prof, wall_prof, _ = _flags_run(
+        "profile-dir", base + ["--profile-dir", str(prof_dir),
+                               "--pair-output", str(prof)])
+    add(counts)
+    traces = list(prof_dir.glob("trace_*.json"))
+    if len(traces) != 1 or PROFILE_KERNEL not in traces[0].read_text():
+        raise AssertionError(f"--profile-dir: traces {traces} do not name "
+                             f"{PROFILE_KERNEL}")
+    if prof.read_bytes() != tsv.read_bytes():
+        raise AssertionError("--profile-dir changed the output bytes")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    n_kern = sum(1 for e in events if PROFILE_KERNEL in
+                 str(e.get("name", "")))
+    _flags_log(f"profile-dir: trace {traces[0].stat().st_size / 1e6:.1f} MB"
+               f", {n_kern} {PROFILE_KERNEL} events, same bytes; scan+write "
+               f"{spans_prof.get('scan+write', 0.0):.3f}s against "
+               f"{spans_plain.get('scan+write', 0.0):.3f}s unprofiled, "
+               f"wall {wall_prof:.3f}s against {wall_plain:.3f}s")
+
+    # (9) --progress-bar: one report at 100 %, on the last batch.
+    counts, _spans, _wall, err = _flags_run(
+        "progress-bar", base + ["--progress-bar", "--pair-output",
+                                str(tmp / "flags_bar.tsv")], stderr=True)
+    add(counts)
+    bars = [ln for ln in err.splitlines() if ln.startswith("[")]
+    if not bars or "100.0%" not in bars[-1] \
+            or sum("100.0%" in b for b in bars) != 1:
+        raise AssertionError(f"--progress-bar lines {bars}")
+    _flags_log(f"progress-bar: {len(bars)} line(s), the last {bars[-1]!r}")
+
+    # (10) --engine reference against the dense engine on a slice.
+    small = tmp / "flags_ref.vcf"
+    write_vcf(small, aln[:REF_SEQS, :REF_SITES])
+    outs = {}
+    for engine in ("reference", "dense"):
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            add(_drive(["--file", str(small), "--engine", engine]))
+        outs[engine] = buf.getvalue().splitlines()
+        _flags_log(f"engine {engine}: {len(outs[engine]) - 1} records in "
+                   f"{time.monotonic() - t0:.3f}s")
+    ref_rows = [r.split("\t") for r in outs["reference"][1:]]
+    den_rows = [r.split("\t") for r in outs["dense"][1:]]
+    if [r[:2] for r in ref_rows] != [r[:2] for r in den_rows] \
+            or not ref_rows:
+        raise AssertionError("--engine reference and dense keep different "
+                             "pairs")
+    worst = max(abs(float(a) - float(b)) for ra, rb in zip(ref_rows,
+                                                           den_rows)
+                for a, b in zip(ra[2:], rb[2:]))
+    if worst > 1.0001e-4:
+        raise AssertionError(f"reference vs dense: {worst} > one quantum")
+    same = sum(ra == rb for ra, rb in zip(ref_rows, den_rows))
+    _flags_log(f"engine reference vs dense on {REF_SEQS} x {REF_SITES}: "
+               f"the same {len(ref_rows)} pairs, {same} rows byte-identical"
+               f", the rest within {worst:.4g} (one 4-dp quantum)")
+
+    # (11) CPU against card under --compat rust on a 4,096-site slice: the
+    # same bytes where the two devices' paper weights are bit-equal, and
+    # always when both are fed the card's weights.
+    slice_vcf = tmp / "flags_slice.vcf"
+    write_vcf(slice_vcf, aln[:, :SLICE_SITES])
+    outs = {}
+    for device in ("cpu", "cuda"):
+        out = tmp / f"flags_slice_{device}.tsv"
+        counts, _spans, _wall, _ = _flags_run(
+            f"compat-rust slice {device}",
+            ["--file", str(slice_vcf), "--compat", "rust", "--engine",
+             "tiled", "--device", device, "--pair-output", str(out)])
+        if device == "cuda":
+            add(counts)
+        elif any(counts.values()):
+            raise AssertionError(f"the CPU run launched kernels: {counts}")
+        outs[device] = out.read_bytes()
+    w = {d: prepare(slice_vcf, WldConfig(weighting="paper"),
+                    device=d).weights for d in ("cpu", "cuda")}
+    if np.array_equal(w["cpu"], w["cuda"]):
+        if outs["cpu"] != outs["cuda"]:
+            raise AssertionError("CPU and card --compat rust TSVs differ "
+                                 "with bit-equal weights")
+        _flags_log("compat-rust slice: weights bit-equal, TSVs "
+                   f"byte-identical ({len(outs['cuda'])} bytes)")
+    else:
+        fed = {}
+        sres = prepare(slice_vcf, WldConfig(weighting="paper"),
+                       device="cuda")
+        for device in ("cpu", "cuda"):
+            out = tmp / f"flags_slice_fed_{device}.tsv"
+            run_to_tsv(sres.alignment, w["cuda"], sres.site_map, out,
+                       DriverConfig(r2_threshold=RUST_THR), device=device,
+                       ndigits=RUST_NDIGITS, checkpoint=False)
+            fed[device] = out.read_bytes()
+        if fed["cpu"] != fed["cuda"] or fed["cuda"] != outs["cuda"]:
+            raise AssertionError("CPU and card TSVs differ when fed the "
+                                 "same weights")
+        _flags_log(f"compat-rust slice: {int((w['cpu'] != w['cuda']).sum())}"
+                   " weights differ by float32 order between the devices; "
+                   "fed the card's weights, the two TSVs are byte-identical "
+                   f"({len(fed['cuda'])} bytes), and CPU vs card CLI bytes "
+                   f"{'equal' if outs['cpu'] == outs['cuda'] else 'differ'}")
+    torch.cuda.synchronize()
+    _need_launch(launches, ("ld_majmin_planes", "ld_majmin_codes",
+                            "ld_general"), "the flags phase")
+    _flags_log(f"kernel launches over the phase: "
+               f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def _scan_seconds(sess) -> float:
     """Wall seconds of one ``stream()`` scan of ``sess``, synchronized."""
     import torch
@@ -2933,7 +3383,7 @@ def phase_gpace() -> None:
 
 
 DEFAULT_PHASES = ("build", "kernels", "main", "cpu-vs-card", "analytics",
-                  "ambiguous", "ingest", "windows")
+                  "ambiguous", "ingest", "windows", "flags")
 
 
 def main() -> int:
@@ -2941,9 +3391,9 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of build, kernels, main, "
                     "cpu-vs-card, analytics, ambiguous, ingest, windows, "
-                    "profile, entries, pace, general, gpace and yardstick "
-                    "(default: the first eight, which the result line "
-                    "needs)")
+                    "flags, profile, entries, pace, general, gpace and "
+                    "yardstick (default: the first nine, which the result "
+                    "line needs)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -3015,6 +3465,10 @@ def main() -> int:
             for name, e in phase_windows(tmp).items():
                 err[name] = max(err[name], e)
             done("windows", t0)
+        if "flags" in phases:
+            t0 = time.monotonic()
+            phase_flags(tmp)
+            done("flags", t0)
         if "profile" in phases:
             phase_profile()
         if "entries" in phases:

@@ -272,7 +272,11 @@ def test_port_imports_neither_jax_nor_triton():
             "weightedld_tpu_torch.pipeline, "
             "weightedld_tpu_torch.runtime.driver, "
             "weightedld_tpu_torch.runtime.ingest, "
-            "weightedld_tpu_torch.io.native; "
+            "weightedld_tpu_torch.io.native, "
+            "weightedld_tpu_torch.io.progressbar, "
+            "weightedld_tpu_torch.core.reference_impl, "
+            "weightedld_tpu_torch.runtime.cache, "
+            "weightedld_tpu_torch.runtime.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'triton', 'weightedld_tpu')]; "
             "assert not bad, bad")
@@ -300,14 +304,18 @@ def test_cuda_default_without_card_is_an_error(tmp_path, capsys):
         run(path)
 
 
-@pytest.mark.parametrize("flag", ["--out-format", "--save-prepared=x.npz",
-                                  "--checkpoint", "--devices",
-                                  "--site-stats", "--sort",
-                                  "--progress", "--verbose"])
+MULTI_PROCESS_FLAGS = [("--devices", "2"), ("--coordinator", "localhost:1"),
+                       ("--num-processes", "2"), ("--process-id", "0")]
+
+
+@pytest.mark.parametrize("flag", [
+    spelling for f, v in MULTI_PROCESS_FLAGS for spelling in ([f, v],
+                                                              [f"{f}={v}"])])
 def test_cli_flag_not_yet_ported(flag, capsys):
-    assert cli.main(["--file", "x.vcf", "--device", "cpu", flag]) == 2
+    assert cli.main(["--file", "x.vcf", "--device", "cpu", *flag]) == 2
     err = capsys.readouterr().err
     assert "not yet ported" in err and "ROADMAP" in err
+    assert flag[0].split("=")[0] in err and "item 13" in err
 
 
 def _unsafe_unknown_alignment():

@@ -11,15 +11,22 @@ Copies from ``weightedld_tpu/core/henikoff.py``:
   takes part in each rounding);
 * ``henikoff_weights_host_site_major`` (``:207-260``): the same from a
   site-major buffer, chunked over site rows, bit-equal to the JAX function;
-* ``_henikoff_partial_sums`` (``:137-166``, the ``python`` formula; the
-  Rust ``paper`` variant is not ported), ``henikoff_weights_site_major``
-  (``:170-205``) and ``henikoff_weights_large`` (``:263-281``): plain torch
-  ops on a device (XLA glue in the JAX package, not kernels).  The cell
-  arithmetic runs in float32 as in JAX, with the one-hot
-  selects of JAX in place of a gather; the per-sequence sums over sites
-  accumulate in float64 and both are chunked over sites, so device memory
-  stays bounded.  They are held to the host weights at a tolerance, not
-  bits.
+* ``henikoff_weights_paper`` (``:153-163``), ``_henikoff_partial_sums``
+  (``:166-189``, both formulas), ``henikoff_weights_site_major``
+  (``:192-228``) and ``henikoff_weights_large`` (``:289-307``, both
+  formulas): plain torch ops on a device (XLA glue in the JAX package, not
+  kernels).  The cell arithmetic runs in float32 as in JAX, with the
+  one-hot selects of JAX in place of a gather; the per-sequence sums over
+  sites accumulate in float64 and every variant is chunked over sites, so
+  device memory stays bounded.  They are held to the host weights, and
+  the ``paper`` weights to the JAX package's float32 ones, at a
+  tolerance, not bits.
+
+The ``paper`` formula is the Henikoff 1994 paper's, as the reference's Rust
+binary computes it (``lib.rs:340-380``): per-site contribution ``1 /
+(distinct_known * count[own symbol])`` with the per-site count of distinct
+concrete symbols, and unknown cells imputed with ``site_total /
+distinct_known``.
 
 Ambiguous cells (code 5) take the site's mean contribution; a site with no
 concrete allele imputes 0 instead of the reference's 0/0 NaN.  The weights
@@ -93,17 +100,26 @@ def henikoff_weights_host_site_major(codes_sm, n_sites: int, n_seqs: int,
         return total / total.max()
 
 
-def _henikoff_partial_sums(alignment: torch.Tensor) -> torch.Tensor:
+def _henikoff_partial_sums(alignment: torch.Tensor,
+                           variant: str = "python") -> torch.Tensor:
     """``[N]`` float64 un-normalized contribution sums of one site chunk
-    ``[N, S]`` of int8 codes (any strides).  The formula is per-site
-    additive, so chunking over sites is exact; the global ``unique_base``
-    is left out, since it cancels under the max-normalization."""
+    ``[N, S]`` of int8 codes (any strides).  Both formulas are per-site
+    additive, so chunking over sites is exact; ``python`` leaves out the
+    global ``unique_base``, since it cancels under the max-normalization,
+    and ``paper`` is the per-site formula of the module docstring."""
     counts = torch.stack([(alignment == c).sum(dim=0)
                           for c in range(N_CODES)]).float()      # [6, S]
     own = sum(counts[c][None, :] * (alignment == c)
               for c in range(N_CODES))                           # [N, S]
     ok = alignment != UNKNOWN
     zero = torch.zeros((), device=alignment.device)
+    if variant == "paper":
+        distinct = (counts[:N_ALLELES] > 0).sum(dim=0).float()   # [S]
+        contrib = torch.where(ok, 1.0 / (distinct * own).clamp(min=1.0),
+                              zero)
+        imputed = contrib.sum(dim=0) / distinct.clamp(min=1.0)
+        contrib = torch.where(ok, contrib, imputed[None, :])
+        return contrib.sum(dim=1, dtype=torch.float64)
     contrib = torch.where(ok, 1.0 / own.clamp(min=1.0), zero)
     concrete = counts[:N_ALLELES].sum(dim=0)                     # [S]
     site_avg = contrib.sum(dim=0) / concrete.clamp(min=1.0)
@@ -128,17 +144,31 @@ def henikoff_weights_site_major(codes_sm: torch.Tensor, n_seqs: int,
 
 def henikoff_weights_large(alignment: np.ndarray, site_chunk: int = 16384,
                            device: str | torch.device | None = None,
-                           ) -> torch.Tensor:
+                           variant: str = "python") -> torch.Tensor:
     """``[N]`` float32 weights of a host ``[N, S]`` alignment, computed on
     ``device`` (default cuda) one ``site_chunk`` of sites at a time, so
     device memory holds one chunk: the weighting of inputs too large for
-    the host float64 path."""
+    the host float64 path, and of every ``paper`` weighting.  The result
+    stays on ``device``."""
     from ..device import resolve_device
 
+    if variant not in ("python", "paper"):
+        raise ValueError(
+            f"variant must be 'python' or 'paper', got {variant!r}")
     dev = resolve_device(device)
     n, s = alignment.shape
     total = torch.zeros(n, dtype=torch.float64, device=dev)
     for lo in range(0, s, site_chunk):
         chunk = np.ascontiguousarray(alignment[:, lo:lo + site_chunk])
-        total += _henikoff_partial_sums(torch.from_numpy(chunk).to(dev))
+        total += _henikoff_partial_sums(torch.from_numpy(chunk).to(dev),
+                                        variant)
     return (total / total.max()).float()
+
+
+def henikoff_weights_paper(alignment: np.ndarray,
+                           device: str | torch.device | None = None,
+                           ) -> torch.Tensor:
+    """``[N]`` float32 max-normalized weights of the ``paper`` formula (the
+    reference's Rust variant, module docstring), computed on ``device``
+    (default cuda), where they stay."""
+    return henikoff_weights_large(alignment, device=device, variant="paper")

@@ -4,8 +4,9 @@ streaming reader into the padded site-major layout.
 Copy of ``read_fasta_with_names`` (the native dispatch of
 ``weightedld_tpu/io/fasta.py:20-35``), ``read_fasta_with_names_python``,
 ``read_fasta``, ``iter_fasta_rows``, ``scan_fasta`` (``:185-254``) and
-``read_fasta_site_major`` (``:256-314``) with sample subsetting, and their
-helpers (``:38-101``); the Rust-binary framing is not ported.
+``read_fasta_site_major`` (``:256-314``) with sample subsetting, their
+helpers (``:38-101``), and the Rust binary's line framing,
+``read_fasta_rust`` and ``read_fasta_rust_with_names`` (``:104-158``).
 BioPython / reference-Python semantics
 (``WeightedLD.py:21-41``): a record is every line between one ``>`` header
 and the next, concatenated; whitespace-only lines are skipped; gzip input
@@ -90,6 +91,57 @@ def read_fasta_with_names_python(
 def read_fasta(path: str | Path) -> np.ndarray:
     """Like :func:`read_fasta_with_names`, codes only."""
     return read_fasta_with_names(path)[0]
+
+
+# The Rust binary's per-character map (lib.rs:53-63): both cases of acgt
+# and '-' are known; everything else, '\n' and '\r' included (its line
+# reader never strips them), is Unknown.
+_RUST_LUT = np.full(256, UNKNOWN, dtype=np.int8)
+for _ch, _code in (("a", 0), ("c", 1), ("g", 2), ("t", 3), ("-", 4)):
+    _RUST_LUT[ord(_ch)] = _code
+    _RUST_LUT[ord(_ch.upper())] = _code
+
+
+def read_fasta_rust(path: str | Path) -> np.ndarray:
+    """The reference Rust binary's FASTA semantics (``lib.rs:277-307``),
+    the ``--fasta-reader rust`` / ``--compat rust`` ingest:
+
+    * every non-``>`` line is its own sequence (wrapped records are not
+      concatenated);
+    * the line terminator is kept and maps to Unknown, so every row ends in
+      an Unknown column (monomorphic, dropped by the masks);
+    * unequal row lengths abort (``lib.rs:180``) as ``ValueError``: a last
+      line without a newline, or wrapped records;
+    * a blank line is a row of length 1.
+    """
+    return read_fasta_rust_with_names(path)[0]
+
+
+def read_fasta_rust_with_names(
+        path: str | Path) -> tuple[np.ndarray, list[str]]:
+    """:func:`read_fasta_rust` and the per-row names: each line takes the
+    latest ``>`` header's name (``lib.rs:287-304``); lines before any
+    header get an empty name."""
+    rows: list[np.ndarray] = []
+    names: list[str] = []
+    name = ""
+    with _open_maybe_gzip(path) as fh:
+        for raw_line in fh:
+            if raw_line.startswith(b">"):
+                name = raw_line[1:].decode("utf-8", "replace").strip()
+                continue
+            rows.append(_RUST_LUT[np.frombuffer(raw_line, dtype=np.uint8)])
+            names.append(name)
+    if not rows:
+        raise ValueError(f"{path}: no sequences found")
+    n_sites = len(rows[0])
+    for i, r in enumerate(rows):
+        if len(r) != n_sites:
+            raise ValueError(
+                f"{path}: sequence {i} has {len(r)} symbols, expected "
+                f"{n_sites} (the Rust reader does not concatenate wrapped "
+                "FASTA lines and keeps line terminators; lib.rs:180)")
+    return np.stack(rows, axis=0), names
 
 
 def iter_fasta_rows(path: str | Path):

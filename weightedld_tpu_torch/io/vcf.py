@@ -4,7 +4,9 @@ the two-pass streaming reader into the padded site-major layout.
 Copy of ``parse_region`` and ``vcf_sample_names``
 (``weightedld_tpu/io/vcf.py:49-115``), ``read_vcf`` (the native dispatch
 of ``:178-207``; a chromosome or region filter reads through the Python
-reader, as there), ``list_chromosomes`` (``:259-281``), ``read_vcf_python``,
+reader, as there), ``list_chromosomes`` (``:259-281``),
+``site_annotations`` and ``site_annotations_multi`` (``:283-358``, the
+CHROM / ID maps of ``--out-format plink``), ``read_vcf_python``,
 ``scan_vcf`` (``:406-441``) and ``read_vcf_site_major`` (``:443-522``) with
 the ``chrom`` / ``pos_range`` filters and the sample ``row_mask``, and
 their helpers (``:118-260, 360-405, 524-560``).  Semantics (reference
@@ -279,6 +281,79 @@ def read_vcf_python(path: str | Path, chrom: str | None = None,
     mat = np.stack(site_rows, axis=0)                 # [n_sites, n_haps]
     alignment = np.ascontiguousarray(mat.T[::-1])     # rot90 row order
     return alignment, site_map
+
+
+def site_annotations(path: str | Path, chrom: str | None = None,
+                     pos_range: tuple[int, int] | None = None,
+                     ) -> tuple[np.ndarray, list[str], list[str]]:
+    """Streaming ``(positions, chroms, ids)`` over the record set the
+    readers keep (chromosome / region filters and trailing-line quirk
+    included): the CHROM and ID columns of each kept record, aligned with
+    the readers' ``site_map``, without decoding genotypes.  The identity
+    source of ``--out-format plink``."""
+    positions: list[int] = []
+    chroms: list[str] = []
+    ids: list[str] = []
+    first = True
+    for lineno, line in _iter_variant_lines(path):
+        if first:
+            _check_multisample(path, line)
+            first = False
+        # The column check of _decode_record, so the annotation set cannot
+        # drift from the readers' record set.
+        cols = line.split("\t", 9)
+        if len(cols) < 10:
+            raise VcfError(f"{path}:{lineno}: fewer than 10 columns")
+        if chrom is not None and cols[0] != chrom:
+            continue
+        pos = int(cols[1])
+        if pos_range is not None \
+                and not (pos_range[0] <= pos <= pos_range[1]):
+            continue
+        positions.append(pos)
+        chroms.append(cols[0])
+        ids.append(cols[2] if cols[2] else ".")
+    if first:
+        raise VcfError(f"{path}: no variant records")
+    if not positions:
+        raise VcfError(_no_records_msg(path, chrom, pos_range))
+    return np.asarray(positions, dtype=np.int64), chroms, ids
+
+
+def site_annotations_multi(
+    path: str | Path,
+    filters: list[tuple[str | None, tuple[int, int] | None]],
+) -> list[tuple[np.ndarray, list[str], list[str]]]:
+    """:func:`site_annotations` for several ``(chrom, pos_range)`` filters
+    in one streaming pass (``--cross-regions --out-format plink``): one
+    ``(positions, chroms, ids)`` tuple per filter; a filter that matches no
+    record raises the single-filter form's error."""
+    outs = [([], [], []) for _ in filters]
+    first = True
+    for lineno, line in _iter_variant_lines(path):
+        if first:
+            _check_multisample(path, line)
+            first = False
+        cols = line.split("\t", 9)
+        if len(cols) < 10:
+            raise VcfError(f"{path}:{lineno}: fewer than 10 columns")
+        pos = int(cols[1])
+        for (chrom, pos_range), (ps, cs, ids) in zip(filters, outs):
+            if chrom is not None and cols[0] != chrom:
+                continue
+            if pos_range is not None \
+                    and not (pos_range[0] <= pos <= pos_range[1]):
+                continue
+            ps.append(pos)
+            cs.append(cols[0])
+            ids.append(cols[2] if cols[2] else ".")
+    if first:
+        raise VcfError(f"{path}: no variant records")
+    for (chrom, pos_range), (ps, _cs, _ids) in zip(filters, outs):
+        if not ps:
+            raise VcfError(_no_records_msg(path, chrom, pos_range))
+    return [(np.asarray(ps, dtype=np.int64), cs, ids)
+            for ps, cs, ids in outs]
 
 
 def scan_vcf(path: str | Path, chrom: str | None = None,

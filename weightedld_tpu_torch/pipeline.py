@@ -1,25 +1,31 @@
 """End-to-end pipeline glue: ingest -> mask -> weight -> LD.
 
-Counterpart of ``WldConfig`` (the fields this port reads), the sample
-subsetting helpers, ``_resolve_vcf_filters``, ``prepare_fasta``,
-``prepare_vcf``, ``regions_overlap``, ``prepare_vcf_cross``, ``prepare``
-and ``run`` from ``weightedld_tpu/pipeline.py:53-340`` (the Rust-framed
-FASTA reader, ``--weighting paper`` and ``site_stats`` are not ported),
-mirroring the reference driver (``WeightedLD.py:287-308, 382-402``):
+Counterpart of ``_weights_for`` (``weightedld_tpu/pipeline.py:37-51``),
+``WldConfig``, the sample subsetting helpers, ``_read_fasta_subset`` with
+its reader dispatch, ``_resolve_vcf_filters``, ``prepare_fasta``,
+``prepare_vcf``, ``regions_overlap``, ``prepare_vcf_cross``, ``prepare``,
+``run`` and ``site_stats`` (``:54-398``), mirroring the reference driver
+(``WeightedLD.py:287-308, 382-402``):
 
 * FASTA: both site masks on the host in float64, the alignment trimmed to
   the LD mask, Henikoff weights on the LD-trimmed alignment (the reference
-  CLI convention);
+  CLI convention) or, with ``weight_mask="hk"``, on the HK-masked one (the
+  reference test suite's convention, ``test.py:43-44``); the Python
+  (BioPython) framing or the Rust binary's line framing
+  (``fasta_reader="rust"``);
 * VCF: no site masking, weights on the full haplotype matrix;
 * ``unweighted``: unit weights;
 * a VCF read can keep one chromosome (``chrom``) or one samtools-style
   region (``region``), and both formats can keep or drop named samples
   (``keep_samples`` / ``exclude_samples``) before masks and weights.
 
-Weights are the float64 host Henikoff weights (bit-equal to the reference);
-inputs above 200M cells are weighted on the pipeline's device (default
-cuda), one chunk of sites at a time, by ``henikoff_weights_large``
-(``weightedld_tpu/pipeline.py:33-49``).
+Weights (``_weights_for``): the ``python`` formula in float64 on the host
+(bit-equal to the reference), or on the pipeline's device (default cuda),
+one chunk of sites at a time, above 200M cells
+(``henikoff_weights_large``); the ``paper`` formula always on the
+pipeline's device in float32 (``henikoff_weights_paper``; the JAX package
+computes it in float32 on its device).  The pipeline's result holds host
+weights, so a device result is copied back there.
 """
 
 from __future__ import annotations
@@ -30,7 +36,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .core.henikoff import henikoff_weights_host, henikoff_weights_large
+from .core.henikoff import (
+    henikoff_weights_host,
+    henikoff_weights_large,
+    henikoff_weights_paper,
+)
 from .core.ld_dense import LdRecords, extract_records, ld_all_pairs_dense
 from .core.sites import compute_variable_sites_host
 from .device import resolve_device
@@ -43,24 +53,35 @@ _LARGE_CELLS = 200_000_000
 
 
 def _weights_for(alignment: np.ndarray,
-                 device: str | torch.device | None = None) -> np.ndarray:
+                 device: str | torch.device | None = None,
+                 variant: str = "python") -> np.ndarray:
     if alignment.size > _LARGE_CELLS:
-        return henikoff_weights_large(alignment, device=device).cpu().numpy()
+        return henikoff_weights_large(alignment, device=device,
+                                      variant=variant).cpu().numpy()
+    if variant == "paper":
+        return henikoff_weights_paper(alignment, device=device).cpu().numpy()
     return henikoff_weights_host(alignment)
 
 
 @dataclass
 class WldConfig:
-    """The reference Python flag set this slice supports (SURVEY.md §5)."""
+    """Union of the reference Python and Rust flag sets (SURVEY.md §5)."""
 
     min_acgt: float = 0.8          # WeightedLD.py:409
     min_variability: float = 0.02  # WeightedLD.py:412
     unweighted: bool = False       # WeightedLD.py:414
     max_minor: float = 1.0         # Rust-only, main.rs:37-42 (1.0 = off)
     r2_threshold: float | None = None  # Rust-only, main.rs:45-49 (None = all)
+    weight_mask: str = "ld"        # "ld" (CLI parity) or "hk" (test.py parity)
+    weighting: str = "python"      # "python" (WeightedLD.py) or "paper"
+                                   # (Henikoff-1994 / Rust variant)
     chrom: str | None = None       # VCF only: keep one chromosome's records
                                    # (the reference ignores CHROM, mixing
                                    # whole-genome POS into one axis)
+    fasta_reader: str = "python"   # "python" (BioPython semantics: wrapped
+                                   # records concatenated) or "rust" (the
+                                   # Rust binary's line reader,
+                                   # io/fasta.py:read_fasta_rust)
     region: str | None = None      # VCF only: "CHR" or "CHR:START-END"
                                    # (1-based inclusive POS window,
                                    # io.vcf.parse_region); exclusive with
@@ -136,11 +157,23 @@ def _subset_vcf_rows(path: str | Path, alignment: np.ndarray,
 
 
 def _read_fasta_subset(path: str | Path, cfg: WldConfig) -> np.ndarray:
-    """FASTA ingest with ``cfg``'s sample subsetting (the Python framing of
-    ``pipeline.py:150-172``; names are read only when subsetting)."""
-    if not _wants_subset(cfg):
-        return read_fasta(path)
-    alignment, names = read_fasta_with_names(path)
+    """FASTA ingest with ``cfg.fasta_reader``'s framing and ``cfg``'s
+    sample subsetting (``pipeline.py:151-173``; names are read only when
+    subsetting)."""
+    if cfg.fasta_reader == "rust":
+        from .io.fasta import read_fasta_rust, read_fasta_rust_with_names
+
+        if not _wants_subset(cfg):
+            return read_fasta_rust(path)
+        alignment, names = read_fasta_rust_with_names(path)
+    elif cfg.fasta_reader == "python":
+        if not _wants_subset(cfg):
+            return read_fasta(path)
+        alignment, names = read_fasta_with_names(path)
+    else:
+        raise ValueError(
+            f"fasta_reader must be 'python' or 'rust', got "
+            f"{cfg.fasta_reader!r}")
     return alignment[_sample_row_mask(names, cfg.keep_samples,
                                       cfg.exclude_samples)]
 
@@ -185,8 +218,11 @@ def prepare_fasta(path: str | Path, cfg: WldConfig, timer=None,
     with timer.stage("weights"):
         if cfg.unweighted:
             weights = np.ones(alignment.shape[0], dtype=np.float32)
+        elif cfg.weight_mask == "hk":
+            weights = _weights_for(alignment[:, hk_mask], device,
+                                   cfg.weighting)
         else:
-            weights = _weights_for(trimmed, device)
+            weights = _weights_for(trimmed, device, cfg.weighting)
     return PipelineResult(alignment=trimmed, site_map=site_map,
                           weights=weights, hk_mask=hk_mask, ld_mask=ld_mask)
 
@@ -204,7 +240,7 @@ def prepare_vcf(path: str | Path, cfg: WldConfig, timer=None,
         if cfg.unweighted:
             weights = np.ones(alignment.shape[0], dtype=np.float32)
         else:
-            weights = _weights_for(alignment, device)
+            weights = _weights_for(alignment, device, cfg.weighting)
     return PipelineResult(alignment=alignment, site_map=site_map,
                           weights=weights)
 
@@ -266,7 +302,7 @@ def prepare_vcf_cross(path: str | Path, cfg: WldConfig,
         if cfg.unweighted:
             weights = np.ones(alignment.shape[0], dtype=np.float32)
         else:
-            weights = _weights_for(alignment, device)
+            weights = _weights_for(alignment, device, cfg.weighting)
     return PipelineResult(alignment=alignment, site_map=site_map,
                           weights=weights), int(aln_a.shape[1])
 
@@ -294,3 +330,51 @@ def run(path: str | Path, cfg: WldConfig | None = None,
         torch.from_numpy(np.asarray(res.weights, np.float32)).to(dev))
     res.records = extract_records(stats, res.site_map, cfg.r2_threshold)
     return res
+
+
+def site_stats(path: str | Path, cfg: WldConfig | None = None) -> dict:
+    """Per-site diagnostic report over all input sites, before any mask
+    (copy of ``pipeline.py:343-398``): why each site was kept or dropped.
+    A dict of equal-length arrays:
+
+    - ``site``: original column index (FASTA) or POS (VCF; the chromosome,
+      region and sample filters respected);
+    - ``coverage``: concrete A/C/G/T fraction (gap excluded,
+      ``WeightedLD.py:68``);
+    - ``major_code``: most frequent code over 0..4, the smallest on ties;
+    - ``minor_fraction``: all-minor fraction over codes 0..4
+      (``WeightedLD.py:79-87``); 0.0 at invariant sites;
+    - ``hk`` / ``ld``: the mask verdicts at ``cfg``'s thresholds; for a VCF
+      informational only (no mask is applied on that path,
+      ``WeightedLD.py:385-388``).
+    """
+    from .core.sites import site_fractions_host, site_histogram_host
+
+    cfg = cfg or WldConfig()
+    if str(path).endswith((".vcf", ".vcf.gz")):
+        chrom, pos_range = _resolve_vcf_filters(cfg)
+        alignment, site_map = read_vcf(path, chrom=chrom,
+                                       pos_range=pos_range)
+        alignment = _subset_vcf_rows(path, alignment, cfg)
+    else:
+        if cfg.region is not None:
+            raise ValueError("region only applies to VCF input (FASTA has "
+                             "no chromosome/position columns)")
+        alignment = _read_fasta_subset(path, cfg)
+        site_map = np.arange(alignment.shape[1], dtype=np.int64)
+    n_seqs = alignment.shape[0]
+    counts = site_histogram_host(alignment)              # one [S, 5] scan
+    coverage, _major, _total, minor_fraction = site_fractions_host(
+        counts, n_seqs)
+    major_code = counts.argmax(axis=1)                   # ties -> low code
+    hk, ld = compute_variable_sites_host(
+        alignment, cfg.min_acgt, cfg.min_variability, cfg.max_minor,
+        counts=counts)
+    return {
+        "site": np.asarray(site_map),
+        "coverage": coverage,
+        "major_code": major_code.astype(np.int64),
+        "minor_fraction": minor_fraction,
+        "hk": hk,
+        "ld": ld,
+    }
