@@ -170,6 +170,27 @@ result line):
              prints its stages and wall with the card; the phase fails
              unless its runs launched ``ld_majmin_planes``,
              ``ld_majmin_codes`` and ``ld_general``.
+10. multi  — the CLI in two processes sharing the card (a gloo process
+             group on 127.0.0.1; writes its own inputs when run alone,
+             ``--phases build,multi``): (a) the headline at r² > 0.1
+             brought up by ``--coordinator`` / ``--num-processes`` /
+             ``--process-id``, byte-equal to ``run_to_tsv(devices=
+             ["cuda:0", "cuda:0"])`` in this process (G = 2), its rows as
+             a set equal to the one-process run's, and again brought up
+             by the three ``JAX_*`` variables, the same bytes; (b) the
+             ambiguous FASTA (the hybrid plan's two phases striped
+             separately, ``ld_general`` and a factorized entry per rank),
+             byte-equal to its G = 2 session; (c) ``--stats-only
+             --seq-chunk 200`` (the codes entry): one JSON line, counts
+             equal to the one-process run's, sums within rtol 1e-5; (d)
+             ``--checkpoint`` interrupted after batch 3 and resumed,
+             byte-equal to an uninterrupted two-process run, plain and
+             ``.gz``; (e) the G = 2 session on the headline's first 4,096
+             sites on the CPU and on the card at the same tiles per batch:
+             the same bytes; (f) shard 1's batch of the G = 2 headline
+             session against the plain version.  Rank 1 opens no file for
+             writing.  Each rank reports every run's wall, stage spans,
+             launches and record-gather time, printed on their own lines.
 
 Not in the default run: ``--phases profile`` times the headline
 session's ``stream`` and ``summarize`` scans interleaved, one batch's
@@ -195,7 +216,10 @@ preplaned ``kernel="general"`` run and ``ld_general_unit`` from its
 ``--unweighted`` CLI run, the four lo_int8 variants from the lo_int8
 runs of the analytics and ambiguous phases, the factorized split_bf16
 and bf16-exact variants from the analytics phase's summarize runs, and the
-general ones from the ambiguous phase's ``kernel="general"`` runs (2c).
+general ones from the ambiguous phase's ``kernel="general"`` runs (2c);
+to ``ld_majmin_planes``, ``ld_majmin_codes`` and ``ld_general`` the multi
+phase adds both ranks' launches of its headline, stats-only and
+ambiguous runs, each rank counting from 0 at the start of each run.
 The windows and flags phases zero the counters before each of their runs
 as well, require the kernels each run must launch, and print their counts
 on their own lines; the kernels line does not take them.
@@ -528,18 +552,18 @@ def _time_cuda(fn, reps: int):
 
 
 def check_session_batch(sess, label: str, b: int = 0,
-                        piece: int = 128) -> tuple[str, float]:
-    """Batch ``b`` of ``sess`` through its kernel entry, with the session's
-    own operands, tile lists and keywords (the main path's launch shape),
-    held against the plain version (run ``piece`` tiles at a time: every
-    tile is independent); returns the kernel's name and the max abs error
-    on kept pairs."""
+                        piece: int = 128, shard: int = 0) -> tuple[str, float]:
+    """Local shard ``shard``'s slice of batch ``b`` of ``sess`` through its
+    kernel entry, with the session's own operands, tile lists and keywords
+    (the main path's launch shape), held against the plain version (run
+    ``piece`` tiles at a time: every tile is independent); returns the
+    kernel's name and the max abs error on kept pairs."""
     import torch
 
     from weightedld_tpu_torch.ops import cuda_general, cuda_ld
 
-    fn, plain, args, kw = sess.batch_kernel(b)
-    ti, tj, em = sess.batch_tiles(b)
+    fn, plain, args, kw = sess.batch_kernel(b, shard)
+    ti, tj, em = sess.batch_tiles(b, shard)
     before = {**cuda_ld.launches, **cuda_general.launches}
     got = fn(*args, ti, tj, em, **kw)
     after = {**cuda_ld.launches, **cuda_general.launches}
@@ -3381,9 +3405,329 @@ def phase_gpace() -> None:
     finally:
         _build._lib = base
 
+# ---------------------------------------------------------------------------
+# Phase 10: multi — two processes sharing the card
+# ---------------------------------------------------------------------------
+
+# Every rank's program: run the CLI once per run spec, in one gloo process
+# group (the first run brings it up), and write each run's report: exit
+# code, wall, stage spans, launch counts, shard count, batches, the
+# seconds spent merging the shards' records and the files it opened for
+# writing.  A spec with ``stop`` raises out of the scan after that many
+# batches (the flags phase's interruption).
+MULTI_RANK = r"""
+import builtins, io, json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+opened, _open = [], io.open
+def tracking_open(file, mode="r", *a, **k):
+    if any(c in mode for c in "wax+"):
+        opened.append(str(file))
+    return _open(file, mode, *a, **k)
+builtins.open = io.open = tracking_open
+from weightedld_tpu_torch import cli
+from weightedld_tpu_torch.ops import cuda_general, cuda_ld
+from weightedld_tpu_torch.runtime import driver as drv
+from weightedld_tpu_torch.runtime.profiling import StageTimer
+
+class Stop(Exception):
+    pass
+
+sessions = []
+init = drv.LdSession.__init__
+def counted_init(self, *a, **k):
+    init(self, *a, **k)
+    sessions.append(self)
+drv.LdSession.__init__ = counted_init
+stream = drv.LdSession.stream
+specs = json.loads(open(sys.argv[2]).read())
+reports = []
+for spec in specs:
+    def limited(self, *a, **k):
+        n = 0
+        for item in stream(self, *a, **k):
+            yield item
+            n += 1
+            if spec["stop"] and n >= spec["stop"] \
+                    and not k.get("start_batch"):
+                raise Stop
+    drv.LdSession.stream = limited
+    sessions.clear()
+    opened.clear()
+    cuda_ld.reset_launches()
+    cuda_general.reset_launches()
+    timer = StageTimer()
+    t0 = time.monotonic()
+    try:
+        rc = cli.main(spec["argv"], timer=timer)
+    except Stop:
+        rc = "stopped"
+    reports.append({
+        "rc": rc, "wall": time.monotonic() - t0, "spans": timer.spans,
+        "launches": {k: v for k, v in {**cuda_ld.launches,
+                                       **cuda_general.launches}.items() if v},
+        "shards": [s.n_shards for s in sessions],
+        "batches": [s.n_batches for s in sessions],
+        "gather_s": sum(s.gather_s for s in sessions),
+        "opened": list(opened)})
+with _open(sys.argv[3], "w") as fh:
+    json.dump(reports, fh)
+"""
+MULTI_TIMEOUT = 300
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _multi_ranks(tmp: Path, tag: str, specs: list[dict],
+                 env_bring_up: bool = False) -> tuple[list, list]:
+    """Run ``specs`` in two processes sharing the card, brought up by the
+    three flags (or the three ``JAX_*`` variables); returns each rank's
+    run reports and standard output.  A rank that fails or outlives
+    ``MULTI_TIMEOUT`` fails the phase, and both processes are stopped."""
+    prog = tmp / "multi_rank.py"
+    prog.write_text(MULTI_RANK)
+    port = _free_port()
+    procs, reports = [], []
+    for pid in (0, 1):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                            "JAX_PROCESS_ID")}
+        runs = []
+        for spec in specs:
+            argv = list(spec["argv"])
+            if not env_bring_up:
+                argv += ["--coordinator", f"127.0.0.1:{port}",
+                         "--num-processes", "2", "--process-id", str(pid)]
+            runs.append({"argv": argv, "stop": spec.get("stop", 0)})
+        if env_bring_up:
+            env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid))
+        spec_file = tmp / f"multi_{tag}_{pid}.json"
+        spec_file.write_text(json.dumps(runs))
+        reports.append(tmp / f"multi_{tag}_{pid}.report.json")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(prog), str(REPO), str(spec_file),
+             str(reports[-1])], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    try:
+        outs = [p.communicate(timeout=MULTI_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, (p, (o, e)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[multi] {tag}: rank {pid} exited "
+                                 f"{p.returncode}: {e[-3000:]}")
+        if pid and o:
+            raise AssertionError(f"[multi] {tag}: rank 1 printed {o!r}")
+    return [json.loads(r.read_text()) for r in reports], [o for o, _ in outs]
+
+
+def _multi_log(label: str, reps: list[dict]) -> None:
+    """Each rank's wall, stage spans, launches and record-merge time."""
+    for pid, r in enumerate(reps):
+        spans = " ".join(f"{k} {v:.3f}s" for k, v in r["spans"].items())
+        batches = sum(r["batches"]) or 1
+        log(f"[multi] {label}: rank {pid}: rc {r['rc']}, cli wall "
+            f"{r['wall']:.3f}s, shards {r['shards']}, batches "
+            f"{r['batches']}, gather {r['gather_s'] * 1e3:.2f} ms "
+            f"({r['gather_s'] * 1e3 / batches:.2f} ms per batch), "
+            f"stages: {spans}, launches {r['launches']}")
+
+
+def phase_multi(tmp: Path) -> tuple[dict, dict]:
+    """The two-process path at the headline's full width: returns the
+    launches of the ranks' main-path runs and the max abs error of the
+    shard's batch check."""
+    import gzip
+
+    from weightedld_tpu_torch.pipeline import prepare
+    from weightedld_tpu_torch.runtime.driver import (DriverConfig, LdSession,
+                                                     run_to_tsv)
+    from weightedld_tpu_torch.runtime.profiling import StageTimer
+
+    vcf, aln, _seeds = headline_vcf(tmp, "multi")
+    fasta, _a, _t, _d = ambiguous_fasta(tmp, "multi")
+    head = ["--file", str(vcf), "--r2-threshold", "0.1"]
+    amb = ["--file", str(fasta), "--r2-threshold", "0.1", "--ndigits", "8"]
+    out = {k: tmp / f"multi_{k}" for k in (
+        "head.tsv", "amb.tsv", "env.tsv", "full.tsv", "full.tsv.gz",
+        "part.tsv", "part.tsv.gz")}
+    specs = [
+        {"argv": [*head, "--pair-output", str(out["head.tsv"])]},
+        {"argv": [*amb, "--pair-output", str(out["amb.tsv"])]},
+        # --seq-chunk 200 (not a multiple of 16): the codes entry.
+        {"argv": [*head, "--stats-only", "--seq-chunk", "200"]}]
+    for sfx in ("tsv", "tsv.gz"):
+        ck = [*head, "--checkpoint", "--pair-output"]
+        specs += [{"argv": [*ck, str(out[f"full.{sfx}"])]},
+                  {"argv": [*ck, str(out[f"part.{sfx}"])],
+                   "stop": FLAGS_STOP_AFTER},
+                  {"argv": [*ck, str(out[f"part.{sfx}"]), "-v"]}]
+    t0 = time.monotonic()
+    reps, stdouts = _multi_ranks(tmp, "flags", specs)
+    log(f"[multi] {len(specs)} CLI runs in two processes sharing the card: "
+        f"{time.monotonic() - t0:.1f}s of command | {card_line()}")
+    names = ("headline", "ambiguous", "stats-only", "ckpt full",
+             "ckpt part", "ckpt resume", "ckpt.gz full", "ckpt.gz part",
+             "ckpt.gz resume")
+    for i, name in enumerate(names):
+        _multi_log(name, [reps[0][i], reps[1][i]])
+        want = "stopped" if "part" in name else 0
+        if any(r[i]["rc"] != want for r in reps) \
+                or any(r[i]["shards"] and set(r[i]["shards"]) != {2}
+                       for r in reps):
+            raise AssertionError(f"[multi] {name}: {[r[i] for r in reps]}")
+        # Only process 0 writes: the TSV, and the checkpoint's state.
+        if reps[1][i]["opened"] or (name != "stats-only") != any(
+                p.startswith(str(tmp)) for p in reps[0][i]["opened"]):
+            raise AssertionError(f"[multi] {name}: files opened for writing "
+                                 f"by rank 0 {reps[0][i]['opened']}, rank 1 "
+                                 f"{reps[1][i]['opened']}")
+    log("[multi] only rank 0 opened a file for writing, in every run")
+
+    # (a) The headline: the G = 2 session's bytes in this process, the
+    # one-shard run's rows as a set, and the JAX_* bring-up's bytes.
+    res = prepare(vcf)
+    g2 = tmp / "multi_g2.tsv"
+    n_g2 = run_to_tsv(res.alignment, res.weights, res.site_map, g2,
+                      DriverConfig(r2_threshold=0.1),
+                      devices=["cuda:0", "cuda:0"], checkpoint=False)
+    one = tmp / "multi_one.tsv"
+    timer = StageTimer()
+    t0 = time.monotonic()
+    _drive([*head, "--pair-output", str(one)], timer=timer)
+    wall_one = time.monotonic() - t0
+    two = out["head.tsv"].read_bytes()
+    if two != g2.read_bytes():
+        raise AssertionError("[multi] the two-process headline TSV differs "
+                             "from the G = 2 session's")
+    rows_two, rows_one = two.splitlines(), one.read_bytes().splitlines()
+    if rows_two[0] != rows_one[0] or set(rows_two[1:]) != set(rows_one[1:]) \
+            or len(rows_two) != len(rows_one):
+        raise AssertionError("[multi] the two-process headline rows differ "
+                             "from the one-process run's as a set")
+    if rows_two == rows_one:
+        raise AssertionError("[multi] the two-process rows are in the "
+                             "one-shard order: no striping happened")
+    for stray in tmp.glob("multi_*.tsv*"):
+        if stray.name.endswith(".ckpt.json"):
+            raise AssertionError(f"[multi] {stray.name} left behind")
+    log(f"[multi] (a) headline: {n_g2} records, two-process TSV byte-equal "
+        f"to the G = 2 session's, rows as a set equal to the one-process "
+        f"run's (another order); walls: one process {wall_one:.3f}s "
+        f"(in this process), two processes {reps[0][0]['wall']:.3f}s / "
+        f"{reps[1][0]['wall']:.3f}s (rank 0 / 1)")
+    env_reps, _o = _multi_ranks(
+        tmp, "env", [{"argv": [*head, "--pair-output", str(out["env.tsv"])]}],
+        env_bring_up=True)
+    _multi_log("headline, JAX_* bring-up", [r[0] for r in env_reps])
+    if out["env.tsv"].read_bytes() != two:
+        raise AssertionError("[multi] the JAX_* bring-up's TSV differs")
+    log("[multi] (a) the JAX_* variables' run writes the same bytes")
+
+    # (b) The ambiguous FASTA: both phases of the hybrid plan per shard.
+    res_amb = prepare(fasta)
+    g2_amb = tmp / "multi_g2_amb.tsv"
+    run_to_tsv(res_amb.alignment, res_amb.weights, res_amb.site_map, g2_amb,
+               DriverConfig(r2_threshold=0.1), devices=["cuda:0", "cuda:0"],
+               checkpoint=False, ndigits=8)
+    if out["amb.tsv"].read_bytes() != g2_amb.read_bytes():
+        raise AssertionError("[multi] the two-process ambiguous TSV differs "
+                             "from the G = 2 session's")
+    for pid, r in enumerate(reps):
+        _need_launch(r[1]["launches"], ("ld_general",),
+                     f"[multi] ambiguous rank {pid}")
+        if not any(k.startswith("ld_majmin") for k in r[1]["launches"]):
+            raise AssertionError(f"[multi] ambiguous rank {pid} ran no "
+                                 "factorized phase")
+    log("[multi] (b) ambiguous: two-process TSV byte-equal to the G = 2 "
+        "session's; each rank launched ld_general and a factorized entry")
+
+    # (c) --stats-only: one JSON line, the one-process counts and sums.
+    lines = [ln for o in stdouts for ln in o.splitlines()
+             if ln.startswith("{")]
+    if len(lines) != 1:
+        raise AssertionError(f"[multi] stats-only printed {len(lines)} JSON "
+                             "lines")
+    got = json.loads(lines[0])
+    want, _counts = _json_run([*head, "--stats-only", "--seq-chunk", "200"])
+    for key in ("n_sequences", "n_sites", "n_pairs", "n_over_threshold"):
+        if got[key] != want[key]:
+            raise AssertionError(f"[multi] stats-only {key}: {got[key]} != "
+                                 f"{want[key]}")
+    for key in ("r2_sum_over_threshold", "r2_max"):
+        if abs(got[key] - want[key]) > 1e-5 * abs(want[key]):
+            raise AssertionError(f"[multi] stats-only {key}: {got[key]} vs "
+                                 f"{want[key]}")
+    log(f"[multi] (c) stats-only: one JSON line, counts equal, sums within "
+        f"rtol 1e-5 (r2 sum {got['r2_sum_over_threshold']!r} vs "
+        f"{want['r2_sum_over_threshold']!r})")
+
+    # (d) --checkpoint interrupted after batch FLAGS_STOP_AFTER and resumed.
+    for sfx in ("tsv", "tsv.gz"):
+        part, full = out[f"part.{sfx}"], out[f"full.{sfx}"]
+        if part.read_bytes() != full.read_bytes():
+            raise AssertionError(f"[multi] resumed {sfx} differs from the "
+                                 "uninterrupted two-process run")
+        if sfx == "tsv.gz" and gzip.decompress(full.read_bytes()) != two:
+            raise AssertionError("[multi] the .gz rows differ from the TSV")
+    log(f"[multi] (d) checkpoint interrupted after batch {FLAGS_STOP_AFTER} "
+        f"and resumed, plain and .gz: byte-equal to the uninterrupted "
+        f"two-process runs")
+
+    # (e) CPU vs card: the G = 2 session on the headline's first sites.
+    # Over several shards a batch holds k tiles of each shard, so the
+    # record order depends on k, whose auto value differs between the two
+    # devices: both runs take the CPU's 8.
+    sl = prepare(tmp / "slice.vcf") if (tmp / "slice.vcf").exists() else None
+    if sl is None:
+        write_vcf(tmp / "slice.vcf", aln[:, :SLICE_SITES])
+        sl = prepare(tmp / "slice.vcf")
+    cfg = DriverConfig(tile=256, seq_chunk=200, r2_threshold=0.005,
+                       tiles_per_shard_batch=8)
+    tsvs = {}
+    for dev in ("cpu", "cuda:0"):
+        tsvs[dev] = tmp / f"multi_slice_{dev[:3]}.tsv"
+        (_n, counts) = _counted(run_to_tsv, sl.alignment, sl.weights,
+                                sl.site_map, tsvs[dev], cfg,
+                                devices=[dev, dev], checkpoint=False)
+        if bool(any(counts.values())) != (dev != "cpu"):
+            raise AssertionError(f"[multi] slice on {dev}: launches {counts}")
+    if tsvs["cpu"].read_bytes() != tsvs["cuda:0"].read_bytes():
+        raise AssertionError("[multi] G = 2 slice: CPU and card TSVs differ")
+    log(f"[multi] (e) G = 2 slice ({SLICE_SITES} sites): CPU and card TSVs "
+        f"byte-identical ({tsvs['cpu'].stat().st_size} bytes)")
+
+    # (f) Shard 1's slice of batch 0 of the G = 2 headline session.
+    sess = LdSession(res.alignment, res.weights, res.site_map,
+                     DriverConfig(r2_threshold=0.1),
+                     devices=["cuda:0", "cuda:0"])
+    name, e = check_session_batch(sess, "multi G = 2 headline, shard 1",
+                                  shard=1)
+    del sess
+
+    launches = {}
+    for r in reps:
+        for i in (0, 1, 2):
+            for k, v in r[i]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    log(f"[multi] launches of both ranks' headline, ambiguous and stats-only "
+        f"runs: {launches}")
+    _need_launch(launches, ("ld_majmin_planes", "ld_majmin_codes",
+                            "ld_general"), "[multi] the two-process runs")
+    return launches, {name: e}
+
 
 DEFAULT_PHASES = ("build", "kernels", "main", "cpu-vs-card", "analytics",
-                  "ambiguous", "ingest", "windows", "flags")
+                  "ambiguous", "ingest", "windows", "flags", "multi")
 
 
 def main() -> int:
@@ -3391,9 +3735,9 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of build, kernels, main, "
                     "cpu-vs-card, analytics, ambiguous, ingest, windows, "
-                    "flags, profile, entries, pace, general, gpace and "
-                    "yardstick (default: the first nine, which the result "
-                    "line needs)")
+                    "flags, multi, profile, entries, pace, general, gpace "
+                    "and yardstick (default: the first ten, which the "
+                    "result line needs)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -3469,6 +3813,15 @@ def main() -> int:
             t0 = time.monotonic()
             phase_flags(tmp)
             done("flags", t0)
+        if "multi" in phases:
+            t0 = time.monotonic()
+            multi_launches, multi_err = phase_multi(tmp)
+            for name, n in multi_launches.items():
+                if name in launches:
+                    launches[name] += n
+            for name, e in multi_err.items():
+                err[name] = max(err[name], e)
+            done("multi", t0)
         if "profile" in phases:
             phase_profile()
         if "entries" in phases:
@@ -3493,8 +3846,10 @@ def main() -> int:
         f"ambiguous lo_int8 CLI run (ld_general) and its preplaned "
         f"kernel='general' lo_int8 run; the factorized split_bf16 and "
         f"bf16-exact variants from the headline summarize runs of each "
-        f"entry, the general ones from the ambiguous kernel='general' runs: "
-        f"{launches}")
+        f"entry, the general ones from the ambiguous kernel='general' runs; "
+        f"ld_majmin_planes, ld_majmin_codes and ld_general add both ranks' "
+        f"launches of the multi phase's headline, stats-only and ambiguous "
+        f"two-process runs: {launches}")
     missing = [name for name in KERNELS if not launches.get(name)]
     if missing:
         raise AssertionError(f"no main-path launch of {missing}")

@@ -377,14 +377,13 @@ def _options(parser: argparse.ArgumentParser) -> dict:
 
 
 def test_parsers_take_the_same_options():
-    """Every option of the JAX CLI but the four multi-process ones is the
-    port's, with the same choices and defaults; the port adds only
-    ``--device``."""
+    """Every option of the JAX CLI, the four multi-process ones included,
+    is the port's, with the same choices, defaults, nargs, type and action;
+    the port adds only ``--device``."""
     want = _options(jcli.build_parser())
     got = _options(cli.build_parser())
-    multi = {"--devices", "--coordinator", "--num-processes", "--process-id"}
-    assert set(cli.NOT_PORTED) == multi
+    assert not hasattr(cli, "NOT_PORTED")
     assert set(got) - set(want) == {"--device"}
-    assert set(want) - set(got) == multi
-    for opt in set(want) - multi:
+    assert set(want) - set(got) == set()
+    for opt in want:
         assert got[opt] == want[opt], opt

@@ -15,9 +15,15 @@ checkpointed ``run_to_tsv`` (``--checkpoint``), the analytics modes, the
 prepared cache (``--save-prepared`` / ``--load-prepared``), ``--site-stats``,
 ``--compat rust``, progress reports, ``--profile-dir`` (a
 ``torch.profiler`` trace) and ``-v``.  The port's ``--device`` (default
-``cuda``; no card is an error, never a silent CPU run) picks the device.
-The four multi-process flags (``--devices``, ``--coordinator``,
-``--num-processes``, ``--process-id``) exit 2 with "not yet ported".
+``cuda``; no card is an error, never a silent CPU run) picks the device
+type.  ``--devices N`` shards the tiled session over the first N cards
+(all by default; on ``--device cpu``, N CPU shards).  ``--coordinator``,
+``--num-processes`` and ``--process-id`` (or the ``JAX_*`` variables, or
+an ``srun`` step) bring up a gloo process group first
+(``parallel/multihost.py``): every process runs the same command line,
+drives its own shards, and only process 0 writes or prints output
+(``cli.py:336-351`` and its ``emit`` gates).  The dense and reference
+engines stay on one device, as in the JAX CLI.
 
 Output order: the dense and reference engines emit pairs in (site_a,
 site_b) row-major order like the Python reference; the tiled engine in tile
@@ -36,11 +42,6 @@ from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
-
-# Flags of the JAX CLI that this port does not take yet -> ROADMAP item.
-NOT_PORTED = dict.fromkeys(("--devices", "--coordinator", "--num-processes",
-                            "--process-id"),
-                           "queue 1 item 13 (multiple GPUs)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -121,8 +122,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="weighted-pass arithmetic of the tiled kernel: none "
                    "= int8x3 (full accuracy), split_bf16, lo_int8 and int8 "
                    "(lossy)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="use only the first N local devices (default: all "
+                   "visible cards; on --device cpu, N CPU shards, default "
+                   "1)")
     p.add_argument("--tiles-per-batch", type=int, default=None,
-                   help="tiles per kernel launch (default: auto)")
+                   help="tiles per device per kernel launch (default: "
+                   "auto)")
     p.add_argument("--checkpoint", action="store_true",
                    help="enable batch-level resume for --pair-output runs "
                    "(tiled engine; a .gz output is written as per-batch "
@@ -246,6 +252,18 @@ def build_parser() -> argparse.ArgumentParser:
                    "to the default's up to summation order, ~1 ulp).  Runs "
                    "the tiled engine; incompatible with --save-prepared and "
                    "--weighting paper")
+    p.add_argument("--coordinator", type=str, default=None,
+                   metavar="HOST:PORT",
+                   help="process-group coordinator address for manual "
+                   "multi-process bring-up (an srun step is detected "
+                   "without any flags; every process runs the SAME command "
+                   "line and only process 0 writes output)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="total process count for manual distributed "
+                   "bring-up (with --coordinator/--process-id)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank for manual distributed bring-up "
+                   "(with --coordinator/--num-processes)")
     p.add_argument("--progress", action="store_true",
                    help="log pairs/s progress to stderr")
     p.add_argument("--progress-bar", action="store_true",
@@ -257,14 +275,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device: cuda (default; fails without a "
                    "card) or cpu (the kernels' plain PyTorch versions)")
     return p
-
-
-def _not_ported(argv: list[str]) -> str | None:
-    for a in argv:
-        name = a.split("=", 1)[0]
-        if name in NOT_PORTED:
-            return name
-    return None
 
 
 def _chrom_range(args):
@@ -567,17 +577,26 @@ def main(argv=None, timer=None) -> int:
     """CLI entry point; ``timer`` (a ``runtime.profiling.StageTimer``)
     collects the per-stage spans."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    flag = _not_ported(argv)
-    if flag is not None:
-        print(f"error: {flag} is not yet ported to weightedld_tpu_torch "
-              f"(ROADMAP {NOT_PORTED[flag]})", file=sys.stderr)
-        return 2
     args = build_parser().parse_args(argv)
     logging.basicConfig(
         format="[%(levelname)s] %(asctime)s %(message)s",
         level=logging.INFO if args.verbose else logging.ERROR,
         datefmt="%Y-%m-%d %H:%M:%S", stream=sys.stderr, force=True)
     log = logging.getLogger("weightedld_tpu_torch")
+
+    # The process group first, before any device use: a launcher runs this
+    # same command line in every process; each drives its shards and only
+    # process 0 prints or writes (cli.py:336-351).
+    from .parallel.multihost import initialize_distributed, is_output_process
+
+    try:
+        initialize_distributed(coordinator_address=args.coordinator,
+                               num_processes=args.num_processes,
+                               process_id=args.process_id)
+    except (RuntimeError, ValueError) as e:
+        print(f"error: distributed bring-up failed: {e}", file=sys.stderr)
+        return 2
+    emit = is_output_process()
 
     # One output mode per invocation, and the checks that come before any
     # other (weightedld_tpu/cli.py:362-405).
@@ -619,11 +638,16 @@ def main(argv=None, timer=None) -> int:
 
     from .device import resolve_device
     from .io.writer import open_text_output, write_pairs, write_weights
+    from .parallel.multihost import global_shard_count, local_devices
     from .pipeline import WldConfig, prepare
     from .runtime.profiling import StageTimer, device_trace
 
     try:
         device = resolve_device(args.device)
+        # The tiled session's shard devices; every process must have as
+        # many (checked across the group before any ingest).
+        devices = local_devices(device, args.devices)
+        global_shard_count(len(devices))
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -641,7 +665,8 @@ def main(argv=None, timer=None) -> int:
 
         try:
             for c in list_chromosomes(args.file):
-                print(c)
+                if emit:
+                    print(c)
         except (VcfError, OSError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
@@ -671,6 +696,8 @@ def main(argv=None, timer=None) -> int:
         except (ValueError, OSError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
+        if not emit:
+            return 0
         with open_text_output(args.site_stats) as fh:
             write_site_stats(stats, fh)
         return 0
@@ -730,7 +757,7 @@ def main(argv=None, timer=None) -> int:
         print("error: --file or --load-prepared is required",
               file=sys.stderr)
         return 2
-    if args.save_prepared:
+    if args.save_prepared and emit:
         from .runtime.cache import save_prepared
 
         save_prepared(args.save_prepared, res,
@@ -767,12 +794,14 @@ def main(argv=None, timer=None) -> int:
                   "run per chromosome with --chrom)", file=sys.stderr)
             return 2
 
-    if args.weights_output:
+    if args.weights_output and emit:
         with open_text_output(args.weights_output) as fh:
             write_weights(res.weights, fh)
 
     if s < 2:
         log.info("fewer than 2 sites of interest; nothing to do")
+        if not emit:
+            return 0
         return _empty_output(args, res, n, s, annot)
 
     engine = args.engine
@@ -790,7 +819,9 @@ def main(argv=None, timer=None) -> int:
               "tiled to use it)", file=sys.stderr)
 
     on_progress = None
-    if args.progress_bar:
+    if not emit:
+        pass  # one progress reporter per run: the output process's
+    elif args.progress_bar:
         from .io.progressbar import ProgressBar
 
         on_progress = ProgressBar(sys.stderr)
@@ -821,7 +852,7 @@ def main(argv=None, timer=None) -> int:
         with timer.stage("upload"):
             return LdSession(res.alignment, res.weights, res.site_map,
                              replace(dcfg, r2_threshold=r2_threshold),
-                             device=device)
+                             devices=devices)
 
     def dense_stats():
         from .core.ld_dense import ld_all_pairs_dense
@@ -843,6 +874,8 @@ def main(argv=None, timer=None) -> int:
         sess = session()
         with timer.stage("scan"):
             mats = sess.matrices(dtype=np.dtype(args.matrix_dtype))
+        if not emit:
+            return 0
         with timer.stage("write"):
             np.savez_compressed(args.matrix_output, site_map=res.site_map,
                                 **mats)
@@ -869,7 +902,8 @@ def main(argv=None, timer=None) -> int:
             sess = session(args.r2_threshold)
             with timer.stage("scan"):
                 out = sess.summarize()
-        _json_line(out, t0)
+        if emit:
+            _json_line(out, t0)
         return 0
 
     trace_dir = args.profile_dir
@@ -898,7 +932,8 @@ def main(argv=None, timer=None) -> int:
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
-        _json_line(out, t0)
+        if emit:
+            _json_line(out, t0)
         return 0
 
     if args.r2_hist is not None:
@@ -910,7 +945,8 @@ def main(argv=None, timer=None) -> int:
         sess = session()
         with traced(), timer.stage("scan"):
             out = sess.r2_histogram(edges)
-        _json_line(out, t0)
+        if emit:
+            _json_line(out, t0)
         return 0
 
     if args.prune_r2 is not None:
@@ -938,6 +974,8 @@ def main(argv=None, timer=None) -> int:
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
+        if not emit:
+            return 0
         with pair_out() as fh:
             # plink mode writes SNP ids, the plink --extract format.
             fh.write("".join(
@@ -966,6 +1004,8 @@ def main(argv=None, timer=None) -> int:
             sess = session()
             with traced(), timer.stage("scan"):
                 rec = sess.top_pairs(args.top)
+        if not emit:
+            return 0
         with pair_out() as fh:
             write_pairs(rec, fh, ndigits=args.ndigits, annot=annot)
         log.info("wrote top-%d pairs in %.2fs", len(rec),
@@ -983,25 +1023,28 @@ def main(argv=None, timer=None) -> int:
         if args.r2_threshold is not None:
             m = records.r2 > args.r2_threshold
             records = LdRecords(*(np.asarray(f)[m] for f in records))
-        with pair_out() as fh:
-            write_pairs(records, fh, ndigits=args.ndigits, annot=annot)
+        if emit:
+            with pair_out() as fh:
+                write_pairs(records, fh, ndigits=args.ndigits, annot=annot)
     elif engine == "dense":
         with traced(), timer.stage("scan"):
             records = extract_records(dense_stats(), res.site_map,
                                       args.r2_threshold)
-        with timer.stage("write"), pair_out() as fh:
-            write_pairs(records, fh, ndigits=args.ndigits, annot=annot)
+        if emit:
+            with timer.stage("write"), pair_out() as fh:
+                write_pairs(records, fh, ndigits=args.ndigits, annot=annot)
         log.info("wrote %d pairs in %.2fs", len(records),
                  time.monotonic() - t0)
     elif args.sort:
         with traced(), timer.stage("scan"):
             rec = collect_ld_records(res.alignment, res.weights,
-                                     res.site_map, dcfg, device=device)
-        with timer.stage("write"):
-            order = np.lexsort((rec.pos_b, rec.pos_a))
-            rec = LdRecords(*(np.asarray(f)[order] for f in rec))
-            with pair_out() as fh:
-                write_pairs(rec, fh, ndigits=args.ndigits, annot=annot)
+                                     res.site_map, dcfg, devices=devices)
+        if emit:
+            with timer.stage("write"):
+                order = np.lexsort((rec.pos_b, rec.pos_a))
+                rec = LdRecords(*(np.asarray(f)[order] for f in rec))
+                with pair_out() as fh:
+                    write_pairs(rec, fh, ndigits=args.ndigits, annot=annot)
         log.info("wrote %d pairs (sorted) in %.2fs", len(rec),
                  time.monotonic() - t0)
     else:
@@ -1012,12 +1055,12 @@ def main(argv=None, timer=None) -> int:
             nrec = run_to_tsv(
                 res.alignment, res.weights, res.site_map,
                 args.pair_output if args.pair_output else "-", dcfg,
-                device=device,
+                devices=devices,
                 checkpoint=args.checkpoint and args.pair_output is not None,
                 ndigits=args.ndigits, on_progress=on_progress, timer=timer,
                 annot=annot)
         log.info("wrote %d pairs in %.2fs", nrec, time.monotonic() - t0)
-    if args.verbose:
+    if args.verbose and emit:
         log.info("stage report:\n%s", timer.report())
     return 0
 

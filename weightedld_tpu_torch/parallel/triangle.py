@@ -1,14 +1,15 @@
 """Site-pair upper-triangle tiling (numpy).
 
 Copies of ``cdiv``, ``TilePlan``, ``plan_tiles`` (with the site-index and
-bp window bands and the cross rectangle), ``_per_tile_minmax`` and
-``plan_tiles_permuted`` from ``weightedld_tpu/parallel/triangle.py:23-178``.
-The S x S site-pair triangle is cut into square tiles of side ``tile``,
-enumerated row-major host-side (~S^2 / 2T^2 entries); windowed and cross
-plans drop the tiles that cannot hold a pair of their set, and the engine
-masks the in-tile remainder (``runtime/driver.py``).  On one device the
-JAX ``stripe`` is the identity on this order, which fixes the order records
-are emitted in; it is not ported, nor is ``pairs_per_shard``.
+bp window bands and the cross rectangle), ``_per_tile_minmax``,
+``plan_tiles_permuted``, ``tile_pair_counts``, ``pairs_per_shard`` and
+``stripe`` from ``weightedld_tpu/parallel/triangle.py:23-233``.  The S x S
+site-pair triangle is cut into square tiles of side ``tile``, enumerated
+row-major host-side (~S^2 / 2T^2 entries); windowed and cross plans drop
+the tiles that cannot hold a pair of their set, and the engine masks the
+in-tile remainder (``runtime/driver.py``).  ``stripe`` deals the plan's
+tiles over G shards (shard d owns tiles d, d + G, d + 2G, ...); on one
+shard it is the identity, and it fixes the order records are emitted in.
 """
 
 from __future__ import annotations
@@ -137,3 +138,48 @@ def plan_tiles_permuted(n_sites: int, tile: int,
     ti, tj = ti[near], tj[near]
     return TilePlan(n_sites=n_sites, tile=tile, s_pad=s_pad, grid=grid,
                     tile_i=ti.astype(np.int32), tile_j=tj.astype(np.int32))
+
+
+def tile_pair_counts(plan: TilePlan) -> np.ndarray:
+    """True (in-triangle, padding-excluded) pair count of every tile:
+    ``h * w`` off the diagonal, ``h (h - 1) / 2`` on it.  A windowed plan
+    counts each tile's full in-triangle pairs (the in-tile window mask is
+    not subtracted)."""
+    t = plan.tile
+    s = plan.n_sites
+    i0 = plan.tile_i.astype(np.int64) * t
+    j0 = plan.tile_j.astype(np.int64) * t
+    h = np.clip(s - i0, 0, t)
+    w = np.clip(s - j0, 0, t)
+    return np.where(plan.tile_i == plan.tile_j, h * (h - 1) // 2, h * w)
+
+
+def pairs_per_shard(plan: TilePlan, n_shards: int) -> np.ndarray:
+    """True pair count each shard evaluates under :func:`stripe`; for an
+    all-pairs plan the counts sum to ``plan.n_pairs``."""
+    counts = tile_pair_counts(plan)
+    n = plan.n_tiles
+    per_shard = cdiv(n, n_shards)
+    out = np.zeros(n_shards, dtype=np.int64)
+    for d in range(n_shards):
+        src = d + np.arange(per_shard) * n_shards
+        out[d] = counts[src[src < n]].sum()
+    return out
+
+
+def stripe(plan: TilePlan,
+           n_shards: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Stripe tiles across shards: shard d owns tiles d, d + n, d + 2n, ...
+
+    Returns ``(tile_i, tile_j, emit)`` of shape ``[n_shards * per_shard]``,
+    shard-major (shard d's tiles are the block ``[d * per_shard, (d + 1) *
+    per_shard)``), padded with non-emitting duplicates of the last tile so
+    that every shard has equal work."""
+    n = plan.n_tiles
+    per_shard = cdiv(n, n_shards)
+    idx = np.arange(per_shard * n_shards)
+    src = idx // per_shard + (idx % per_shard) * n_shards
+    emit = src < n
+    src = np.minimum(src, n - 1)
+    return (plan.tile_i[src].astype(np.int32),
+            plan.tile_j[src].astype(np.int32), emit)

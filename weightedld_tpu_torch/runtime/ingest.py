@@ -6,7 +6,9 @@ Copy of ``prepare_vcf_streamed``, ``session_from_vcf``,
 ``weightedld_tpu/runtime/ingest.py:50-236``, with the chromosome, region
 and sample filters (``chrom``, ``pos_range``, ``keep_samples``,
 ``exclude_samples``; the FASTA twins take the sample ones) and the
-session's ``device`` in place of a mesh.  The chain:
+session's ``device`` / ``devices`` (its local shard devices) in place of a
+mesh; the streamed buffer is replicated to the shards like any matrix.
+The chain:
 
 * pass 1 (``io.vcf.scan_vcf`` / ``io.fasta.scan_fasta``) learns the shape
   of the records and samples kept (and, for a FASTA, the per-site
@@ -78,7 +80,7 @@ def session_from_vcf(path: str | Path, cfg: DriverConfig | None = None,
                      pos_range: tuple[int, int] | None = None,
                      keep_samples: tuple[str, ...] | None = None,
                      exclude_samples: tuple[str, ...] | None = None,
-                     ) -> LdSession:
+                     devices=None) -> LdSession:
     """A session on ``device`` (default cuda) from a VCF, possibly gzipped,
     with bounded host memory: the streaming twin of ``prepare_vcf`` plus
     ``LdSession``, with its filters.  Henikoff weights on the full
@@ -96,7 +98,8 @@ def session_from_vcf(path: str | Path, cfg: DriverConfig | None = None,
     elif weights is None and weight_precision == "f64":
         weights = henikoff_weights_host_site_major(sm.codes, sm.n_sites,
                                                    sm.n_seqs)
-    return LdSession(sm, weights, site_map, cfg=cfg, device=device)
+    return LdSession(sm, weights, site_map, cfg=cfg, device=device,
+                     devices=devices)
 
 
 def prepare_fasta_streamed(
@@ -140,7 +143,7 @@ def session_from_fasta(path: str | Path, cfg: DriverConfig | None = None,
                        weights: np.ndarray | None = None,
                        keep_samples: tuple[str, ...] | None = None,
                        exclude_samples: tuple[str, ...] | None = None,
-                       ) -> LdSession:
+                       devices=None) -> LdSession:
     """A session on ``device`` (default cuda) from a FASTA, possibly
     gzipped, with bounded host memory: the sample subset, the LD-mask trim
     and float64 host Henikoff weights on the trimmed sites, as the
@@ -154,4 +157,5 @@ def session_from_fasta(path: str | Path, cfg: DriverConfig | None = None,
     elif weights is None:
         weights = henikoff_weights_host_site_major(sm.codes, sm.n_sites,
                                                    sm.n_seqs)
-    return LdSession(sm, weights, site_map, cfg=cfg, device=device)
+    return LdSession(sm, weights, site_map, cfg=cfg, device=device,
+                     devices=devices)
