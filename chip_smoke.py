@@ -227,10 +227,38 @@ result line):
              in two sharing the card (the ``JAX_*`` variables): only rank
              0 writes ``pairs.tsv``, whose rows as a set equal the
              one-process run's.
+12. transport — the record transport (writes its own inputs when run
+             alone, ``--phases build,transport``): (a) ``round_fixed_exact``
+             and ``round_decimals`` (the rounding of ``stream(decimals=)``)
+             on the card equal the CPU's, bit for bit, on JAX's adversarial
+             sweep and 2^24 random float32 in [-1, 1] at every d in 0..4,
+             and CPython's ``round`` on the sweep; (b) on the headline (the
+             main phase's prepared input and CLI TSV) and on bench.py's
+             heavy input (N = 250 x S = 49,152, 6,600 five-site groups, a
+             copy of ``bench.py:145-160``), a scan with every slice on the
+             exact path (``compact_tile_stats``, no capacity) is the
+             reference: the fresh session's first scan, the learned
+             re-scans of ``stream()`` and ``stream(decimals=4)`` (the
+             speculative compaction) and the CLI's (headline) or
+             ``run_to_tsv``'s (heavy) TSV, which streams at
+             ``decimals=4``, write its bytes; (c) under
+             ``torch.cuda.set_sync_debug_mode("warn")`` a fresh session's
+             first scan shows its exact-path synchronizations, and a
+             re-scan of the learned session has no exact-path slice and no
+             synchronizing operation between its first and last launch,
+             every batch b + 1 launched before batch b is read; each scan's
+             batches, exact-path slices and synchronizing operations are
+             printed; (d) ``stream()``,
+             ``stream(decimals=4)`` and ``summarize()`` timed interleaved,
+             three scans each after a warm-up, on both inputs, with the
+             heavy ``summarize`` / ``stream(decimals=4)`` seconds ratio
+             (bench.py's heavy metric).
 
 Not in the default run: ``--phases profile`` times the headline
 session's ``stream`` and ``summarize`` scans interleaved, one batch's
-top-k selection with and without the tile-max prefilter, and breaks one
+top-k selection with and without the tile-max prefilter and its
+compaction (speculative, unrounded and at 4 decimals, and exact) beside its
+kernel launch, and breaks a ``stream()`` and a ``stream(decimals=4)``
 scan down by device kernel with torch.profiler; ``--phases entries`` times
 the two factorized entry points over whole sessions at several N and S,
 interleaved, in int8x3, lo_int8 and split_bf16; ``--phases pace`` times
@@ -244,7 +272,9 @@ case and the 528-tile plan, synchronized after each launch (run it under
 variants of the general body that drop one part of its work
 (``GENERAL_PACE_VARIANTS``) beside the committed body; ``--phases
 build,scan`` times the headline session's scans at G = 1 and G = 2 on one
-card, and with ``--against DIR`` in another checkout too, in turns.
+card and the heavy input's at G = 1, ``stream(decimals=4)`` among them
+where the tree has it, with the device-idle share of one profiled scan of
+each input, and with ``--against DIR`` in another checkout too, in turns.
 
 The launch counters are zeroed just before each run of the main path and
 read just after it; the kernels line reports ``ld_majmin_planes`` from the
@@ -2975,13 +3005,14 @@ def phase_flags(tmp: Path) -> dict:
     return launches
 
 
-def _scan_seconds(sess) -> float:
-    """Wall seconds of one ``stream()`` scan of ``sess``, synchronized."""
+def _scan_seconds(sess, **kw) -> float:
+    """Wall seconds of one ``stream(**kw)`` scan of ``sess``,
+    synchronized."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    for _b, _rec in sess.stream():
+    for _b, _rec in sess.stream(**kw):
         pass
     torch.cuda.synchronize()
     return time.monotonic() - t0
@@ -2996,14 +3027,20 @@ def phase_profile() -> None:
     summarize, stream); one batch's
     top-k selection (k = TOP_K) is timed with the tile-max prefilter
     (``topk_batch``) and as one flat ``torch.topk``, the same gather
-    after each, beside that batch's kernel launch; then one scan runs
-    under torch.profiler for the device time by kernel and the device idle
-    share.  Then the same for the windowed headline (``--max-distance-bp
+    after each, beside that batch's kernel launch, and its compaction
+    (speculative, unrounded and at 4 decimals, and exact) by
+    CUDA events and by device time; then a ``stream()`` and a
+    ``stream(decimals=4)`` scan run under torch.profiler for the device
+    time by kernel and the device idle share.  Then the same for the
+    windowed headline (``--max-distance-bp
     1000000`` on the windows phase's positions), with the window and cross
     masks timed alone on a full batch beside its kernel launch."""
     import torch
 
     from weightedld_tpu_torch.core.henikoff import henikoff_weights_host
+    from weightedld_tpu_torch.core.ld_tiled import (compact_fixed,
+                                                    compact_tile_stats,
+                                                    threshold_mask)
     from weightedld_tpu_torch.parallel.analytics import pair_rows, topk_batch
     from weightedld_tpu_torch.runtime.driver import DriverConfig, LdSession
 
@@ -3064,9 +3101,32 @@ def phase_profile() -> None:
         f"{ms_kernel:.3f} ms; top-{TOP_K} selection + gather, with the "
         f"tile-max prefilter {ms['prefilter']} ms, one flat torch.topk "
         f"{ms['flat']} ms | {card_line()}")
-    del st, a, b
+    # Batch 0's compaction beside its kernel launch (a hand-written kernel
+    # for it only if it costs over 10 % of the launch): speculative at the
+    # capacity the scans above learned, unrounded and rounded to 4
+    # decimals, and the exact path (torch.nonzero, which waits).
+    mask = threshold_mask(st, 0.1)
+    cap = sess._batch_capacity(0, 0)
+    fns = {"block": lambda: compact_fixed(st, ti, tj, mask, tile=t,
+                                          capacity=cap),
+           "block/decimals=4": lambda: compact_fixed(
+               st, ti, tj, mask, tile=t, capacity=cap, scale=10000),
+           "exact": lambda: compact_tile_stats(st, ti, tj, mask, tile=t)}
+    ms_c = {k: [] for k in fns}
+    for kind in ("block", "block/decimals=4", "exact", "exact",
+                 "block/decimals=4", "block"):
+        ms_c[kind].append(_time_cuda(fns[kind], 5)[0])
+    dev_c = {k: _device_ms(fn) for k, fn in fns.items()}
+    shares = {k: round(v / ms_kernel, 4) for k, v in dev_c.items()}
+    log(f"[profile] batch 0 compaction ({int(mask.sum())} records, "
+        f"capacity {cap}): CUDA events {ms_c} ms (the host's launches of "
+        f"its small ops included), device time of its kernels {dev_c} ms, "
+        f"beside the kernel's {ms_kernel:.3f} ms (device shares {shares}) "
+        f"| {card_line()}")
+    del st, a, b, mask
 
     _profile_scan(sess, "headline")
+    _profile_scan(sess, "headline, stream(decimals=4)", decimals=4)
     del sess
 
     # The windowed headline: the scan, its breakdown, and each mask form
@@ -3100,18 +3160,43 @@ def phase_profile() -> None:
     _profile_scan(wsess, "windowed")
 
 
-def _profile_scan(sess, label: str) -> None:
-    """One ``stream`` scan of ``sess`` under torch.profiler: device kernel
-    time by kernel and the device idle share."""
+def device_rows(prof) -> list[tuple[str, float, int]]:
+    """``(name, device ms, count)`` of the device kernels and copies a
+    torch.profiler run recorded, longest first: the rows whose device
+    time is their own, not that of the host-side ``aten::`` / ``cuda*``
+    calls that launched them."""
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_time_total > 0
+            and not e.key.startswith(("aten::", "cuda"))]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def _device_ms(fn, reps: int = 5) -> float:
+    """Milliseconds per call of the device kernels and copies ``fn``
+    launches, by torch.profiler: the time the card spends on its work,
+    without the host's launch gaps between them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[1] for r in device_rows(prof)) / reps
+
+
+def _profile_scan(sess, label: str, **kw) -> None:
+    """One ``stream(**kw)`` scan of ``sess`` under torch.profiler: device
+    kernel time by kernel and the device idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall = _scan_seconds(sess)
-    rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_time_total > 0), key=lambda r: -r[1])
-    kernels = [r for r in rows if not r[0].startswith(("aten::", "cuda"))]
+        wall = _scan_seconds(sess, **kw)
+    kernels = device_rows(prof)
     busy = sum(r[1] for r in kernels)
     log(f"[profile] {label} scan: device kernel time {busy:.3f} ms of "
         f"{wall * 1e3:.3f} ms wall: idle share {1 - busy / (wall * 1e3):.4f}")
@@ -3921,9 +4006,11 @@ def _stream_lines(sess) -> str:
 
 def _launch_order(sess, call) -> list[str]:
     """The events of ``call(sess)``: ``launch`` where a kernel wrapper is
-    called, ``read`` where a compaction or a host copy of a batch result
-    starts, and ``sync`` where PyTorch reports a synchronizing CUDA
-    operation (``torch.cuda.set_sync_debug_mode("warn")``)."""
+    called, ``yield`` where the batch loop hands a batch to its reader
+    (``LdSession._pipelined``), ``read`` where an exact compaction or the
+    wait for a batch result's copy to the host starts, and ``sync`` where
+    PyTorch reports a synchronizing CUDA operation
+    (``torch.cuda.set_sync_debug_mode("warn")``)."""
     import warnings
 
     import torch
@@ -3942,7 +4029,13 @@ def _launch_order(sess, call) -> list[str]:
              "tile_stats_general": "launch", "compact_tile_stats": "read",
              "_to_host": "read"}
     saved = {n: getattr(drv, n) for n in names}
+    pipelined = drv.LdSession._pipelined
     on_card = sess.device.type == "cuda"
+
+    def logged_pipelined(self, *a, **k):
+        for item in pipelined(self, *a, **k):
+            events.append("yield")
+            yield item
 
     def on_warning(message, *a, **k):
         if "synchronizing" in str(message):
@@ -3951,6 +4044,7 @@ def _launch_order(sess, call) -> list[str]:
     try:
         for n, kind in names.items():
             setattr(drv, n, logged(kind, saved[n]))
+        drv.LdSession._pipelined = logged_pipelined
         with warnings.catch_warnings():
             warnings.simplefilter("always")
             warnings.showwarning = on_warning
@@ -3964,13 +4058,42 @@ def _launch_order(sess, call) -> list[str]:
     finally:
         for n, fn in saved.items():
             setattr(drv, n, fn)
+        drv.LdSession._pipelined = pipelined
     return events
+
+
+def _check_pipelined(events: list[str], g: int, n_batches: int,
+                     label: str) -> int:
+    """Hold one batch loop's events (:func:`_launch_order`) to the
+    pipelined contract: without the reads and syncs they are batch 0's
+    and batch 1's ``g`` launches, then a ``yield`` after each later
+    batch's ``g`` launches, then the last ``yield``, so every slice of
+    batch b + 1 launches before anything of batch b is read; a read or a
+    sync follows a ``yield`` (or another read or sync), never a launch.
+    Returns the synchronizing operations seen between the first launch
+    and the last."""
+    events = events[events.index("launch"):]  # set-up reads before it
+    want = ["launch"] * g
+    for _b in range(1, n_batches):
+        want += ["launch"] * g + ["yield"]
+    want.append("yield")
+    skeleton = [ev for ev in events if ev in ("launch", "yield")]
+    bad = [i for i, (prev, ev) in enumerate(zip(events, events[1:]))
+           if ev in ("read", "sync") and prev == "launch"]
+    if skeleton != want or bad:
+        raise AssertionError(
+            f"{label}: the batch loop is not pipelined (a launch of batch "
+            f"b + 1 after a read of batch b, or a read or sync right after "
+            f"a launch at events {bad[:5]}): {events[:40]}")
+    last = len(events) - 1 - events[::-1].index("launch")
+    return events[:last].count("sync")
 
 
 def _hold_launch_order(sess, label: str) -> None:
     """In every batch of ``stream``, ``summarize``, ``ld_decay``,
     ``r2_histogram`` and ``top_pairs``, every local slice of ``sess`` is
-    launched before the batch's first read or synchronizing operation."""
+    launched together, and batch b + 1's before batch b's first read or
+    synchronizing operation."""
     g = sess.n_local
     calls = {"stream": lambda s: list(s.stream()),
              "summarize": lambda s: s.summarize(),
@@ -3979,25 +4102,12 @@ def _hold_launch_order(sess, label: str) -> None:
              "top_pairs": lambda s: s.top_pairs(TOP_K)}
     for method, call in calls.items():
         events = _launch_order(sess, call)
-        events = events[events.index("launch"):]  # set-up reads before it
-        groups = []
-        for ev in events:
-            if ev == "launch" and (not groups or groups[-1][-1] != "launch"):
-                groups.append([])
-            groups[-1].append(ev)
-        bad = [i for i, grp in enumerate(groups)
-               if grp[:g] != ["launch"] * g or grp.count("launch") != g
-               or len(grp) == g]
-        n_sync = events.count("sync")
-        if bad or len(groups) != sess.n_batches or (
-                sess.device.type == "cuda" and n_sync < sess.n_batches):
-            raise AssertionError(
-                f"[api] {label} {method}: batches {bad} of {len(groups)} do "
-                f"not launch all {g} slices before their first read "
-                f"({n_sync} synchronizing operations seen)")
-        log(f"[api] {label} {method}: in each of {len(groups)} batches all "
-            f"{g} slices launched before the first read; {n_sync} "
-            f"synchronizing operations seen, none before a batch's last "
+        inner = _check_pipelined(events, g, sess.n_batches,
+                                 f"[api] {label} {method}")
+        log(f"[api] {label} {method}: {sess.n_batches} batches, all {g} "
+            f"slices of batch b + 1 launched before batch b's first read; "
+            f"{events.count('sync')} synchronizing operations seen, {inner} "
+            f"between the first launch and the last, none right after a "
             f"launch")
 
 
@@ -4371,14 +4481,23 @@ def phase_api(tmp: Path) -> dict:
 
 
 SCAN = r"""
-import hashlib, json, sys, time
+import hashlib, importlib.util, inspect, json, sys, time
 sys.path.insert(0, sys.argv[1])
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 from weightedld_tpu_torch.runtime.driver import DriverConfig, LdSession
-aln, w = np.load(sys.argv[2]), np.load(sys.argv[3])
+# This script's helpers, from its own file (the tree may hold another
+# chip_smoke.py), after the tree's package is loaded.
+sys.path.append(sys.argv[2])
+spec = importlib.util.spec_from_file_location(
+    "smoke", sys.argv[2] + "/chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+device_rows, formatted = smoke.device_rows, smoke.formatted
 HIST = {"6": [0, 0.1, 0.2, 0.5, 0.8, 1.01],
         "101": [i / 100 for i in range(100)] + [1.01]}
+DECIMALS = "decimals" in inspect.signature(LdSession.stream).parameters
 
 def timed(fn):
     torch.cuda.synchronize()
@@ -4387,47 +4506,73 @@ def timed(fn):
     torch.cuda.synchronize()
     return time.perf_counter() - t0, out
 
+def idle(fn):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = timed(fn)
+    busy = sum(r[1] for r in device_rows(prof)) / 1e3
+    return {"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall}
+
 out = {}
-for g in (1, 2):
-    sess = LdSession(aln, w, np.arange(1, aln.shape[1] + 1),
-                     DriverConfig(r2_threshold=0.1),
-                     devices=["cuda:0"] * g)
-    runs = {"stream": lambda: list(sess.stream()), "summarize": sess.summarize}
-    for n, e in HIST.items():
-        runs[f"r2_histogram/{n}"] = lambda e=e: sess.r2_histogram(e)
-    res = {name: [] for name in runs}
-    for name, fn in runs.items():
-        timed(fn)                                  # warm-up
-    for _ in range(3):
-        for name, fn in runs.items():
-            dt, got = timed(fn)
-            res[name].append(dt)
-            if name == "stream":
-                recs = got
-            elif name.startswith("r2_histogram"):
-                res[name + "/n_pairs"] = got["n_pairs"]
-    h = hashlib.sha256()
-    for _b, rec in sorted(recs, key=lambda br: br[0]):
-        for f in rec._fields:
-            h.update(np.ascontiguousarray(getattr(rec, f)).tobytes())
-    res["sha256"] = h.hexdigest()
-    res["batches"] = sess.n_batches
-    out[f"G{g}"] = res
-    del sess
+inputs = {"headline": (np.load(sys.argv[3]), np.load(sys.argv[4]), (1, 2)),
+          "heavy": (np.load(sys.argv[5]), np.load(sys.argv[6]), (1,))}
+for name, (aln, w, gs) in inputs.items():
+    for g in gs:
+        sess = LdSession(aln, w, np.arange(1, aln.shape[1] + 1),
+                         DriverConfig(r2_threshold=0.1),
+                         devices=["cuda:0"] * g)
+        runs = {"stream": lambda: list(sess.stream()),
+                "summarize": sess.summarize}
+        if DECIMALS:
+            runs["stream/decimals=4"] = lambda: list(sess.stream(decimals=4))
+        if name == "headline":
+            for n, e in HIST.items():
+                runs[f"r2_histogram/{n}"] = lambda e=e: sess.r2_histogram(e)
+        res = {k: [] for k in runs}
+        for k, fn in runs.items():
+            timed(fn)                              # warm-up
+        for _ in range(3):
+            for k, fn in runs.items():
+                dt, got = timed(fn)
+                res[k].append(dt)
+                if k == "stream":
+                    recs = got
+                elif k.startswith("r2_histogram"):
+                    res[k + "/n_pairs"] = got["n_pairs"]
+        h = hashlib.sha256()
+        for _b, rec in sorted(recs, key=lambda br: br[0]):
+            for f in rec._fields:
+                h.update(np.ascontiguousarray(getattr(rec, f)).tobytes())
+        res["sha256"] = h.hexdigest()
+        text = formatted(recs)
+        res["tsv_sha256"] = hashlib.sha256(text.encode()).hexdigest()
+        if DECIMALS and formatted(sess.stream(decimals=4)) != text:
+            raise AssertionError(f"{name} G{g}: stream(decimals=4) "
+                                 "differs from stream()")
+        res["batches"] = sess.n_batches
+        if g == 1:
+            for k in [k for k in runs if k.startswith("stream")]:
+                res["profile/" + k] = idle(runs[k])
+        out[f"{name}/G{g}"] = res
+        del sess
 print(json.dumps(out))
 """
 
 
 def phase_scan(tmp: Path, against: str | None) -> None:
     """Not in the default run: the headline session at G = 1 on
-    ``cuda:0`` and G = 2 on ``[cuda:0, cuda:0]``, ``stream``,
-    ``summarize`` and ``r2_histogram`` with 6 and 101 edges, three timed
-    scans each after a warm-up, in a process of its own.  With
-    ``--against DIR`` (another checkout, e.g. the parent commit unpacked by
-    ``git archive`` into a gitignored directory) the same program runs on
-    that tree too, on kernels that tree builds from its own sources, in
-    turns (other, this, this, other); the records' sha256 and the
-    histograms at each G must agree across the trees."""
+    ``cuda:0`` and G = 2 on ``[cuda:0, cuda:0]``, and bench.py's heavy
+    input at G = 1: ``stream``, ``stream(decimals=4)`` where the tree has
+    it, ``summarize`` and (headline) ``r2_histogram`` with 6 and 101
+    edges, three timed scans each after a warm-up, in turns, then one
+    profiled scan of each stream form at G = 1 for its device-idle share
+    (``torch.profiler``: kernel time over the synchronized wall), in a
+    process of its own.  With ``--against DIR`` (another checkout, e.g.
+    the parent commit unpacked by ``git archive`` into a gitignored
+    directory) the same program runs on that tree too, on kernels that
+    tree builds from its own sources, in turns (other, this, this,
+    other); the records' and formatted TSV's sha256 and the histograms at
+    each G must agree across the trees."""
     from weightedld_tpu_torch.core.henikoff import henikoff_weights_host
 
     trees = [("this", REPO)]
@@ -4439,34 +4584,277 @@ def phase_scan(tmp: Path, against: str | None) -> None:
                  ("other", other)]
     aln, _seeds = loaded_alignment(np.random.default_rng(2024), N_HEAD,
                                    S_HEAD, N_TRIPLETS)
+    heavy = heavy_alignment(HEAVY_N, S_HEAD, HEAVY_GROUPS)
     np.save(tmp / "scan_aln.npy", aln)
     np.save(tmp / "scan_w.npy", henikoff_weights_host(aln))
+    np.save(tmp / "scan_heavy.npy", heavy)
+    np.save(tmp / "scan_heavy_w.npy", henikoff_weights_host(heavy))
     prog = tmp / "scan.py"
     prog.write_text(SCAN)
     runs = []
     for label, tree in trees:
         p = subprocess.run(
-            [sys.executable, str(prog), str(tree), str(tmp / "scan_aln.npy"),
-             str(tmp / "scan_w.npy")],
+            [sys.executable, str(prog), str(tree), str(REPO)] + [
+                str(tmp / f"scan_{x}.npy")
+                for x in ("aln", "w", "heavy", "heavy_w")],
             capture_output=True, text=True, timeout=900)
         if p.returncode != 0:
             raise AssertionError(f"[scan] {label}: {p.stderr[-3000:]}")
         runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
-        for g, res in runs[-1].items():
+        for key, res in runs[-1].items():
             times = {k: v for k, v in res.items()
                      if isinstance(v, list) and not k.endswith("n_pairs")}
-            log(f"[scan] {label} ({tree}): {g} on cuda:0, {res['batches']} "
-                f"batches, seconds {times} | {card_line()}")
-    for g in runs[0]:
-        keys = ["sha256"] + [k for k in runs[0][g] if k.endswith("n_pairs")]
-        if any(r[g][k] != runs[0][g][k] for r in runs for k in keys):
-            raise AssertionError(f"[scan] {g}: the runs' records or "
+            log(f"[scan] {label} ({tree}): {key} on cuda:0, "
+                f"{res['batches']} batches, seconds {times} | {card_line()}")
+            for k, v in res.items():
+                if k.startswith("profile/"):
+                    log(f"[scan] {label}: {key} {k[8:]} under torch.profiler:"
+                        f" wall {v['wall_s']:.6f}s, device busy "
+                        f"{v['busy_s']:.6f}s, idle share "
+                        f"{v['idle_share']:.4f}")
+    for key in runs[0]:
+        keys = ["sha256", "tsv_sha256"] + [
+            k for k in runs[0][key] if k.endswith("n_pairs")]
+        if any(r[key][k] != runs[0][key][k] for r in runs for k in keys):
+            raise AssertionError(f"[scan] {key}: the runs' records or "
                                  "histograms differ")
     log("[scan] every run's records and histograms agree at each G")
 
 
+# bench.py's heavy cell (bench.py:145-160, 585-640): N = 250 x S = 49,152
+# with 6,600 five-site groups, about 73 k records at r2 > 0.1.
+HEAVY_N, HEAVY_GROUPS = 250, 6600
+QUANT_RANDOM = 1 << 24        # random float32 in [-1, 1] per decimal count
+TRANSPORT_ROUNDS = 3
+
+
+def heavy_alignment(n_seqs: int, n_sites: int, groups: int) -> np.ndarray:
+    """Copy of bench.py's ``_heavy_alignment`` (``bench.py:145-160``) on
+    its ``synthetic_alignment`` (``:39-44``): codes A / T / gap at 60 / 30
+    / 10 %, then ``groups`` five-site clusters (a seed site and four
+    2%-mutated copies), seed 42."""
+    rng = np.random.default_rng(42)
+    r = rng.random((n_seqs, n_sites))
+    aln = np.where(r < 0.6, 0, np.where(r < 0.9, 3, 4)).astype(np.int8)
+    seeds = rng.choice(n_sites, size=(groups, 5), replace=False)
+    for row in seeds:
+        for dst in row[1:]:
+            col = aln[:, row[0]].copy()
+            mut = rng.random(n_seqs) < 0.02
+            col[mut] = np.where(col[mut] == 0, 3, 0)
+            aln[:, dst] = col
+    return aln
+
+
+def quantizer_sweep(d: int) -> np.ndarray:
+    """The JAX package's adversarial float32 sweep of its quantizer
+    ``round_fixed_exact`` (``tests/test_driver.py:402-418``) at ``d``
+    decimals: half-ties, near-ties at 1e-7 and 1e-9, randoms and the tiny
+    negatives whose rounding prints ``-0.0``, kept within |x| * 10^d <
+    32000.  ``tests/test_torch_transport.py`` imports it."""
+    rng = np.random.default_rng(d)
+    scale = 10 ** d
+    qs = rng.integers(-32000, 32000, size=8000)
+    vals = [(qs + 0.5) / scale, (qs - 0.5) / scale,
+            qs / scale + rng.normal(size=8000) * 1e-7,
+            qs / scale + rng.normal(size=8000) * 1e-9,
+            rng.normal(size=8000) * 0.3,
+            np.array([0.0, -0.0, 1e-9, -1e-9, -4.9e-5, 4.9e-5, -5.1e-5,
+                      5.1e-5, 0.95, -0.95, 0.00005, -0.00005, -0.055,
+                      -0.0005, 0.00065])]
+    x = np.concatenate(vals).astype(np.float32)
+    return x[np.abs(x) * scale < 32000]
+
+
+def formatted(records, ndigits: int = 4) -> str:
+    """The TSV body (no header) of an iterable of ``(b, LdRecords)``."""
+    import io
+
+    from weightedld_tpu_torch.io.writer import write_pairs
+
+    buf = io.StringIO()
+    for _b, rec in records:
+        write_pairs(rec, buf, ndigits=ndigits, header=False)
+    return buf.getvalue()
+
+
+def _transport_quantizer() -> None:
+    """(a) The quantizer and the rounding of ``stream(decimals=)`` on the
+    card against the CPU, and against CPython on the sweep."""
+    import torch
+
+    from weightedld_tpu_torch.core.ld_tiled import (round_decimals,
+                                                    round_fixed_exact)
+
+    rng = np.random.default_rng(13)
+    for d in range(5):
+        sweep = quantizer_sweep(d)
+        x = np.concatenate([sweep, rng.uniform(-1, 1, QUANT_RANDOM)
+                            .astype(np.float32)])
+        xt = torch.from_numpy(x)
+        t0 = time.monotonic()
+        for fn in (round_fixed_exact, round_decimals):
+            cpu = fn(xt, 10 ** d)
+            card = fn(xt.cuda(), 10 ** d).cpu()
+            if not torch.equal(cpu.view(torch.int32), card.view(torch.int32)):
+                n_bad = int((cpu.view(torch.int32)
+                             != card.view(torch.int32)).sum())
+                raise AssertionError(f"[transport] d={d}: {fn.__name__} on "
+                                     f"the card and the CPU differ at "
+                                     f"{n_bad} of {len(x)}")
+        dec = card[:len(sweep)].numpy()
+        bad = [i for i in range(len(sweep))
+               if repr(float(dec[i])) != repr(float(np.float32(
+                   round(float(sweep[i]), d))))]
+        if bad:
+            raise AssertionError(f"[transport] d={d}: {sweep[bad[0]]} "
+                                 f"rounded to {dec[bad[0]]}")
+        log(f"[transport] quantizer d={d}: round_fixed_exact and "
+            f"round_decimals on the card equal the CPU's on {len(x)} "
+            f"float32 ({len(sweep)} adversarial + {QUANT_RANDOM} random in "
+            f"[-1, 1]), round_decimals CPython's round on the sweep "
+            f"({time.monotonic() - t0:.2f}s)")
+
+
+def _exact_scan(sess) -> str:
+    """(b)'s reference: ``stream()``'s records formatted, with every slice
+    of every batch on the exact path (``compact_tile_stats``: no
+    capacity, no speculative compaction)."""
+    before = sess.path_counts["speculative"]
+    sess._batch_capacity = lambda b, shard: None
+    try:
+        text = formatted(sess.stream())
+    finally:
+        del sess._batch_capacity
+    if sess.path_counts["speculative"] != before:
+        raise AssertionError("[transport] the exact reference scan took "
+                             "the speculative path")
+    return text
+
+
+def _transport_scan(sess, label: str, call) -> tuple[int, int, int]:
+    """One scan under the event log of :func:`_launch_order`, held to the
+    pipelined contract; prints and returns its exact-path slices, its
+    synchronizing operations and those between its first launch and its
+    last."""
+    before = sess.path_counts["exact"]
+    events = _launch_order(sess, call)
+    inner = _check_pipelined(events, sess.n_local, sess.n_batches,
+                             f"[transport] {label}")
+    exact = sess.path_counts["exact"] - before
+    log(f"[transport] {label}: {sess.n_batches} batches, {exact} exact-path "
+        f"slices, {events.count('sync')} synchronizing operations, {inner} "
+        f"between the first launch and the last")
+    return exact, events.count("sync"), inner
+
+
+def phase_transport(tmp: Path) -> None:
+    """The record transport: the quantizer, the speculative compaction's
+    bytes against the exact path's, the sync-free re-scan and the scans'
+    times, on the headline and on bench.py's heavy input."""
+    from weightedld_tpu_torch.core.henikoff import henikoff_weights_host
+    from weightedld_tpu_torch.io.writer import pair_header
+    from weightedld_tpu_torch.runtime.driver import (DriverConfig, LdSession,
+                                                     run_to_tsv)
+
+    _transport_quantizer()
+
+    # The inputs: the main phase's prepared headline and its CLI TSV
+    # (streamed at decimals=4), or both made here when run alone.
+    if not (tmp / "headline_prepared.npz").exists():
+        from weightedld_tpu_torch.pipeline import prepare
+
+        vcf, _aln, _seeds = headline_vcf(tmp, "transport")
+        _drive(["--file", str(vcf), "--r2-threshold", "0.1",
+                "--pair-output", str(tmp / "headline.tsv")])
+        res = prepare(vcf)
+        np.savez(tmp / "headline_prepared.npz", alignment=res.alignment,
+                 weights=res.weights, site_map=res.site_map)
+    prep = np.load(tmp / "headline_prepared.npz")
+    t0 = time.monotonic()
+    heavy = heavy_alignment(HEAVY_N, S_HEAD, HEAVY_GROUPS)
+    heavy_w = henikoff_weights_host(heavy)
+    log(f"[transport] heavy input {HEAVY_N} x {S_HEAD}, {HEAVY_GROUPS} "
+        f"five-site groups ({time.monotonic() - t0:.2f}s)")
+    inputs = {"headline": (prep["alignment"], prep["weights"],
+                           prep["site_map"]),
+              "heavy": (heavy, heavy_w, np.arange(S_HEAD))}
+    cfg = DriverConfig(r2_threshold=0.1)
+    header = pair_header() + "\n"
+    for name, (aln, w, sm) in inputs.items():
+        sess = LdSession(aln, w, sm, cfg, device="cuda")
+        # (c) the first scan of a fresh session: exact-path slices, whose
+        # synchronizations show that the debug mode sees them; then (b)'s
+        # exact reference, then two re-scans of the learned session, which
+        # must show no exact slice and no synchronization between launches.
+        got = {}
+        exact, syncs, _inner = _transport_scan(
+            sess, f"{name} scan 1, stream(), fresh",
+            lambda s: got.__setitem__("fresh", formatted(s.stream())))
+        if not exact or (sess.device.type == "cuda" and not syncs):
+            raise AssertionError(f"[transport] {name}: the fresh session's "
+                                 f"first scan showed {exact} exact-path "
+                                 f"slices and {syncs} synchronizations")
+        ref = _exact_scan(sess)
+        for label, kw in (("stream(decimals=4)", {"decimals": 4}),
+                          ("stream()", {})):
+            exact, _syncs, inner = _transport_scan(
+                sess, f"{name} re-scan, {label}, learned",
+                lambda s, kw=kw: got.__setitem__(
+                    label, formatted(s.stream(**kw))))
+            if exact or inner:
+                raise AssertionError(
+                    f"[transport] {name}: the learned re-scan {label} took "
+                    f"{exact} exact-path slices and synchronized {inner} "
+                    f"times between its launches")
+        # (b) byte equality with the exact path's records: the speculative
+        # compaction, unrounded and rounded on the card, and the CLI's
+        # (run_to_tsv's) TSV, which streams at decimals=4.
+        n_rec = ref.count("\n")
+        differ = [k for k, v in got.items() if v != ref]
+        if differ:
+            raise AssertionError(f"[transport] {name}: {differ} differ from "
+                                 "the exact path's records")
+        if name == "headline":
+            out = tmp / "headline.tsv"
+        else:
+            out = tmp / "heavy.tsv"
+            run_to_tsv(aln, w, sm, out, cfg, device="cuda", checkpoint=False)
+        if out.read_text() != header + ref:
+            raise AssertionError(f"[transport] {name}: the TSV of {out.name} "
+                                 "differs from the exact path's records")
+        log(f"[transport] {name}: {n_rec} records; the fresh scan, the "
+            f"learned stream() and stream(decimals=4) and the "
+            f"{'CLI' if name == 'headline' else 'run_to_tsv'} TSV equal the "
+            f"exact path's records formatted, byte for byte "
+            f"({len(ref)} bytes)")
+        # (d) the scans' times, interleaved, after the warm-up above.
+        n_pairs = S_HEAD * (S_HEAD - 1) // 2
+        # Records consumed as bench.py's heavy cell consumes them, not
+        # formatted.
+        runs = {"stream()": lambda: list(sess.stream()),
+                "stream(decimals=4)": lambda: list(sess.stream(decimals=4)),
+                "summarize()": sess.summarize}
+        times = {k: [] for k in runs}
+        for _ in range(TRANSPORT_ROUNDS):
+            for k, fn in runs.items():
+                times[k] += _time_sync(fn, 1)
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        log(f"[transport] {name} seconds over {TRANSPORT_ROUNDS} interleaved "
+            f"rounds: {times}; medians {med}; {n_pairs / med['stream()']:.4g} "
+            f"pairs/s stream(), {n_pairs / med['stream(decimals=4)']:.4g} "
+            f"stream(decimals=4) | {card_line()}")
+        if name == "heavy":
+            log(f"[transport] heavy ratio (bench.py's heavy metric, "
+                f"summarize seconds / stream(decimals=4) seconds, median): "
+                f"{med['summarize()'] / med['stream(decimals=4)']:.4f}; "
+                f"stream() {med['summarize()'] / med['stream()']:.4f}")
+        del sess
+
+
 DEFAULT_PHASES = ("build", "kernels", "main", "cpu-vs-card", "analytics",
-                  "ambiguous", "ingest", "windows", "flags", "multi", "api")
+                  "ambiguous", "ingest", "windows", "flags", "multi", "api",
+                  "transport")
 
 
 def main() -> int:
@@ -4474,9 +4862,9 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of build, kernels, main, "
                     "cpu-vs-card, analytics, ambiguous, ingest, windows, "
-                    "flags, multi, api, profile, entries, pace, general, "
-                    "gpace, yardstick and scan (default: the first "
-                    "eleven, which the result line needs)")
+                    "flags, multi, api, transport, profile, entries, pace, "
+                    "general, gpace, yardstick and scan (default: the "
+                    "first twelve, which the result line needs)")
     ap.add_argument("--against", default=None, metavar="DIR",
                     help="the scan phase: another checkout to time beside "
                     "this one, e.g. the parent commit unpacked by git "
@@ -4571,6 +4959,10 @@ def main() -> int:
                 if name in launches:
                     launches[name] += n
             done("api", t0)
+        if "transport" in phases:
+            t0 = time.monotonic()
+            phase_transport(tmp)
+            done("transport", t0)
         if "profile" in phases:
             phase_profile()
         if "entries" in phases:

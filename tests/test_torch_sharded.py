@@ -14,8 +14,9 @@ mesh, on the CPU.
   backend (``XLA_FLAGS=--xla_cpu_max_isa=AVX``; tests/test_torch_slice.py).
 * Launch order: in every batch of ``stream``, ``summarize``, ``ld_decay``,
   ``r2_histogram``, ``top_pairs`` and ``matrices``, a session dispatches
-  all of its G local slices before its first host read (a compaction or
-  a copy to the host), on the hybrid plan at G = 2 and 3.
+  all of its G local slices together, and every slice of batch b + 1
+  before its first host read of batch b (an exact compaction or the wait
+  for a copy to the host), on the hybrid plan at G = 1, 2 and 3.
 
 Tolerances: TSV bytes, record order, counts, plans and prune sets exact;
 float32 sums within rtol 1e-5 / atol 1e-6 (per-shard summation order);
@@ -284,18 +285,29 @@ READS = {
 
 
 @pytest.mark.parametrize("method", list(READS))
-@pytest.mark.parametrize("g", (2, 3))
+@pytest.mark.parametrize("g", (1, 2, 3))
 def test_every_shard_launches_before_the_first_read(monkeypatch, g, method):
-    """The events of one read-out, split at each dispatch that follows a
-    read: every group is one batch, and it opens with the dispatch of all
-    G local slices of that batch, in shard order, then only reads."""
+    """The events of one read-out: ``dispatch`` of a slice, ``yield`` where
+    the batch loop hands batch b to its reader, and the reads.  Without
+    the reads they must be batch 0's and batch 1's G dispatches, then
+    ``yield b`` after batch b + 1's G dispatches, then the last ``yield``:
+    the slices of a batch launch together, in shard order, and batch
+    b + 1's before anything of batch b is read.  Every read follows a
+    ``yield`` (or another read), never a dispatch, and each batch is
+    read."""
     sess = _session("amb", g)
     events = []
     dispatch = LdSession._dispatch
+    pipelined = LdSession._pipelined
 
     def logged_dispatch(self, b, shard=0):
         events.append(("dispatch", b, shard))
         return dispatch(self, b, shard)
+
+    def logged_pipelined(self, *a, **k):
+        for b, launched in pipelined(self, *a, **k):
+            events.append(("yield", b))
+            yield b, launched
 
     def logged(name, fn):
         def wrapper(*a, **k):
@@ -304,20 +316,22 @@ def test_every_shard_launches_before_the_first_read(monkeypatch, g, method):
         return wrapper
 
     monkeypatch.setattr(LdSession, "_dispatch", logged_dispatch)
+    monkeypatch.setattr(LdSession, "_pipelined", logged_pipelined)
     monkeypatch.setattr(driver, "compact_tile_stats",
                         logged("compact", driver.compact_tile_stats))
     monkeypatch.setattr(driver, "_to_host",
                         logged("to_host", driver._to_host))
     READS[method](sess)
-    groups = []
-    for ev in events:
-        if ev[0] == "dispatch" and (not groups or groups[-1][-1][0] != (
-                "dispatch")):
-            groups.append([])
-        assert groups, f"a read before any dispatch: {ev}"
-        groups[-1].append(ev)
-    assert len(groups) == sess.n_batches
-    for b, group in enumerate(groups):
-        assert group[:g] == [("dispatch", b, sh) for sh in range(g)], group
-        assert len(group) > g and all(ev[0] != "dispatch"
-                                      for ev in group[g:]), group
+    n = sess.n_batches
+    assert n > 2
+    launches = lambda b: [("dispatch", b, sh) for sh in range(g)]
+    want = launches(0)
+    for b in range(1, n):
+        want += launches(b) + [("yield", b - 1)]
+    want.append(("yield", n - 1))
+    assert [ev for ev in events if ev[0] in ("dispatch", "yield")] == want
+    for prev, ev in zip([("start",)] + events, events):
+        if ev[0] in ("compact", "to_host"):
+            assert prev[0] in ("yield", "compact", "to_host"), (prev, ev)
+        if prev[0] == "yield":
+            assert ev[0] in ("compact", "to_host"), (prev, ev)

@@ -10,6 +10,13 @@ wld``.  Every function that computes on a device takes ``device`` (default
 ``cuda``; the CPU only by name, ``"cpu"``).  This package imports ``torch``
 and never ``jax``; its CUDA kernels are built from ``csrc/`` at first use.
 ``docs/API_TORCH.md`` lists each name's device contract.
+
+The sessions of ``session_from_vcf`` / ``session_from_fasta``
+(``runtime.driver.LdSession``) stream their records with
+``stream(start_batch=0, r2_threshold=..., on_progress=None,
+decimals=None)``: ``decimals`` in 0..4 yields D and r2 rounded on the
+device as Python's ``round(x, decimals)`` rounds them (D' exact), for text
+at that many digits; ``None`` yields exact float32 values.
 """
 
 from .core.encode import encode_alignment

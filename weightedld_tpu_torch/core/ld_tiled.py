@@ -1,21 +1,42 @@
 """Device-side record compaction over a batch of tiles.
 
-Counterpart of ``compact_tile_stats`` (``weightedld_tpu/core/ld_tiled.py:
-138-310``) in its plain form: filter ``keep & (r2 > threshold)`` over the
-flattened ``[K, T, T]`` batch and gather the survivors in (tile, row, col)
-order — the order the JAX slot compaction also produces.  PyTorch has no
-static-shape constraint, so there is no fixed capacity and no overflow
-protocol, and records travel as global site indices plus float32 values
-(the 12-byte fixed-point wire is not ported).
+Counterpart of ``round_fixed_exact`` and ``compact_tile_stats``
+(``weightedld_tpu/core/ld_tiled.py:82-310``).  A batch's survivors are the
+pairs of ``keep & (r2 > threshold)`` over the flattened ``[K, T, T]``
+batch, gathered in (tile, row, col) order, the order of the JAX
+compactions.  Two forms:
 
-The filter is split in two so that a session can launch it for every
-shard before it reads any back: :func:`threshold_mask` is device work
-only, and :func:`compact_tile_stats` waits for the device (its
-``torch.nonzero`` reads the survivor count).
+* :func:`compact_tile_stats`, the exact path: ``torch.nonzero``, which
+  reads the survivor count back and so waits for the device;
+* :func:`compact_fixed`, the speculative path: the survivors packed into a
+  fixed ``capacity`` with no host read, the count left on the device.  The
+  caller reads the count with the block and falls back to the exact path
+  when it exceeds the capacity.  Its block is ``[capacity, 5]`` int32:
+  global sites ``i, j`` and the float32 bits of D, D', r2.
+
+Both take ``scale = 10^d`` to round D and r2 to d decimals on the device
+(:func:`round_decimals`), as ``stream(decimals=d)`` yields them.  The JAX
+package ships such records in a 12-byte fixed-point wire (word 0 the
+tile-local pair, word 1 the D and r2 quanta); the port keeps the float32
+block: on an H100 the wire saved no time (``PERF.md``).
+
+The JAX slot search (mask rows bit-packed by an MXU dot, then a binary
+search per slot) is TPU plumbing.  Here the flattened mask's bytes (0 or
+1 each) are read as int64 words of 8 pairs, and ``word % 255`` is the
+word's survivor count (256 = 1 mod 255, so the remainder sums the
+bytes): one elementwise pass that casts nothing.  The counts' inclusive
+prefix gives the batch's count (its last entry) and, by one
+``searchsorted`` per slot, the word of the (s+1)-th survivor; a prefix
+over that word's 8 flags finds its column.  On the H100 a reduction over
+groups of the bool mask costs a cast of the whole mask to int32 and a
+slow narrow reduction, 1.7 ms per 2,520-tile batch against the
+4.6 ms kernel (``PERF.md``).  All are stream-ordered torch ops that read
+nothing back.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .paircore import PairStats
@@ -28,17 +49,99 @@ def threshold_mask(stats: PairStats, r2_threshold: float) -> torch.Tensor:
     return stats.keep & (stats.r2 > r2_threshold)
 
 
+def _quanta(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """float64 ``round_half_even(x * scale)``, -0.0 and NaN kept."""
+    return torch.round(x.to(torch.float64) * scale)
+
+
+def round_fixed_exact(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """int32 ``round_half_even(x * scale)`` of the REAL product, for
+    float32 ``x`` and ``scale = 10^d``, d <= 4 (JAX ``ld_tiled.py:82-135``).
+
+    The float64 product of a float32 and ``10^d`` is exact (24 + 14
+    mantissa bits < 53) and ``torch.round`` rounds half to even, so this is
+    CPython's ``round(float(x), d)`` scaled by ``10^d``, the integer the
+    JAX Dekker two-product computes in float32 on a TPU.  No fused
+    multiply-add can enter: the product is one rounding-free multiply."""
+    return _quanta(x, scale).to(torch.int32)
+
+
+def round_decimals(x: torch.Tensor, scale: int | None) -> torch.Tensor:
+    """float32 ``x`` rounded to ``log10(scale)`` decimals as CPython's
+    ``round(float(x), d)`` rounds them, as float32: the quantum of
+    :func:`round_fixed_exact` over ``scale`` in float64 (one correctly
+    rounded division), ``-0.0`` where ``x`` is negative and rounds to zero,
+    as Python prints it (JAX ``_quantize`` and ``_records_from_wire3``,
+    ``driver.py:1117-1173``).  ``scale=None`` returns ``x``."""
+    if scale is None:
+        return x
+    return (_quanta(x, scale) / scale).to(torch.float32)
+
+
 def compact_tile_stats(stats: PairStats, tile_i: torch.Tensor,
                        tile_j: torch.Tensor, mask: torch.Tensor, *,
-                       tile: int) -> tuple[int, torch.Tensor, torch.Tensor]:
-    """``(count, sites [count, 2] int64, values [count, 3] float32)`` of the
-    pairs of ``mask`` (:func:`threshold_mask`): global site indices ``(i,
-    j)`` and ``(D, D', r2)``, on the stats' device."""
+                       tile: int, scale: int | None = None,
+                       ) -> tuple[int, torch.Tensor, torch.Tensor]:
+    """The exact path: ``(count, sites [count, 2] int64, values [count, 3]
+    float32)`` of the pairs of ``mask`` (:func:`threshold_mask`), global
+    site indices ``(i, j)`` and ``(D, D', r2)``, D and r2 rounded by
+    :func:`round_decimals` at ``scale``, on the stats' device.  Waits for
+    the device (``torch.nonzero`` reads the count)."""
     kt, i_loc, j_loc = torch.nonzero(mask, as_tuple=True)
     gi = tile_i.to(torch.int64)[kt] * tile + i_loc
     gj = tile_j.to(torch.int64)[kt] * tile + j_loc
     sites = torch.stack([gi, gj], dim=1)
-    values = torch.stack([stats.d[kt, i_loc, j_loc],
-                          stats.d_prime[kt, i_loc, j_loc],
-                          stats.r2[kt, i_loc, j_loc]], dim=1)
+    d, r2 = round_decimals(torch.stack([stats.d[kt, i_loc, j_loc],
+                                        stats.r2[kt, i_loc, j_loc]]), scale)
+    values = torch.stack([d, stats.d_prime[kt, i_loc, j_loc], r2], dim=1)
     return int(sites.shape[0]), sites, values
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).contiguous().view(torch.int32)
+
+
+def compact_fixed(stats: PairStats, tile_i: torch.Tensor,
+                  tile_j: torch.Tensor, mask: torch.Tensor, *, tile: int,
+                  capacity: int, scale: int | None = None,
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The speculative path: ``(count, block)`` on the stats' device with
+    no host read.  ``count`` is the int64 survivor count (it may exceed
+    ``capacity``; the caller then takes the exact path); ``block`` is
+    ``[capacity, 5]`` int32, the first ``min(count, capacity)`` survivors
+    in (tile, row, col) order and zeros past them: the global sites ``(i,
+    j)`` and the float32 bits of ``(D, D', r2)``, D and r2 rounded by
+    :func:`round_decimals` at ``scale``."""
+    t = tile
+    flags = mask.reshape(-1)
+    if flags.numel() % 8:
+        flags = torch.cat([flags, flags.new_zeros(-flags.numel() % 8)])
+    per = flags.view(torch.int64) % 255                # survivors per word
+    cum = torch.cumsum(per, 0)                         # inclusive
+    count = cum[-1]
+    slot = torch.arange(capacity, device=cum.device)
+    word = torch.searchsorted(cum, slot, right=True).clamp_(max=len(cum) - 1)
+    rank = slot - (cum[word] - per[word])              # rank in its word
+    # The (rank + 1)-th flag of the word is at the count of its positions
+    # whose inclusive prefix is <= rank.
+    pos = torch.cumsum(flags.view(-1, 8)[word], 1)
+    src = (word * 8 + (pos <= rank[:, None]).sum(1)).clamp_(
+        max=mask.numel() - 1)                          # dead slots in range
+    live = (slot < count)[:, None]
+    kt, within = src // (t * t), src % (t * t)
+    i_loc, j_loc = within // t, within % t
+    take = lambda x: x.reshape(-1)[src]
+    gi = tile_i.to(torch.int64)[kt] * t + i_loc
+    gj = tile_j.to(torch.int64)[kt] * t + j_loc
+    d, r2 = round_decimals(torch.stack([take(stats.d), take(stats.r2)]),
+                           scale)
+    block = torch.stack([gi.to(torch.int32), gj.to(torch.int32), _bits(d),
+                         _bits(take(stats.d_prime)), _bits(r2)], dim=1)
+    return count, torch.where(live, block, 0)
+
+
+def decode_block(block: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Host rows of a ``[n, 5]`` int32 block of :func:`compact_fixed`:
+    ``(sites [n, 2] int64, values [n, 3] float32)``."""
+    return (block[:, :2].astype(np.int64),
+            np.ascontiguousarray(block[:, 2:]).view(np.float32))
