@@ -253,6 +253,28 @@ result line):
              three scans each after a warm-up, on both inputs, with the
              heavy ``summarize`` / ``stream(decimals=4)`` seconds ratio
              (bench.py's heavy metric).
+13. xla    — the JAX package's XLA tile engine on the card (writes its own
+             inputs when run alone, ``--phases build,xla``):
+             ``DriverConfig(engine="xla")`` sessions (``tile_stats_batch``:
+             float32 ``torch.bmm`` and the torch finalize, no kernel of
+             the port) at r² > 0.1 against the kernels' sessions: (a) the
+             headline, two ``stream()`` scans timed (seconds, pairs/s,
+             peak memory), no kernel launched and one ``tile_stats_batch``
+             per batch and shard, the same records but pairs within 2e-5
+             of the threshold (counted) at rtol 2e-5 / atol 1e-6, and
+             ``run_to_tsv`` at T = 128 against the kernels' at T = 128, in
+             order, but 4-dp ties whose raw values lie within 1e-6
+             (counted); (c) the G = 2 session on ``cuda:0`` at G = 1's
+             tiles per batch, the same records bit for bit; (b) the
+             ambiguous FASTA against the hybrid session the same way (TSV
+             rows matched by pair); (d) the library column:
+             ``tile_stats_batch`` on the kernel-timing cell's factorized,
+             general and unit-weight inputs (528 tile pairs, N_pad 1,024,
+             in pieces of the engine's auto batch), CUDA events, its two
+             products alone beside it, bits unchanged under
+             ``torch.set_float32_matmul_precision("high")``, and per
+             kernel row the library time and, after the kernels phase,
+             kernel / library.
 
 Not in the default run: ``--phases profile`` times the headline
 session's ``stream`` and ``summarize`` scans interleaved, one batch's
@@ -310,6 +332,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -519,13 +542,9 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _case_inputs(seed, alphabet, n_seqs, n_sites, tile, seq_chunk, wq,
-                 device, aln=None):
-    import torch
-
-    from weightedld_tpu_torch.ops import cuda_ld as K
-    from weightedld_tpu_torch.parallel.triangle import plan_tiles
-
+def _case_host(seed, alphabet, n_seqs, n_sites, wq, aln=None):
+    """``(rng, alignment, float32 weights)`` of a kernel case on the host,
+    the rng drawn up to the weights."""
     rng = np.random.default_rng(seed)
     if aln is None:
         aln = rng.choice(alphabet, size=(n_seqs, n_sites)).astype(np.int8)
@@ -536,6 +555,17 @@ def _case_inputs(seed, alphabet, n_seqs, n_sites, tile, seq_chunk, wq,
     else:
         w = (rng.random(n_seqs) + 0.05).astype(np.float32)
         w /= w.max()
+    return rng, aln, w
+
+
+def _case_inputs(seed, alphabet, n_seqs, n_sites, tile, seq_chunk, wq,
+                 device, aln=None):
+    import torch
+
+    from weightedld_tpu_torch.ops import cuda_ld as K
+    from weightedld_tpu_torch.parallel.triangle import plan_tiles
+
+    rng, aln, w = _case_host(seed, alphabet, n_seqs, n_sites, wq, aln)
     if wq in ("int8", "int8x3"):
         wr = K.pad_weights_int8(w, seq_chunk, levels=2 if wq == "int8" else 3)
     elif wq == "lo_int8":
@@ -555,13 +585,10 @@ def _case_inputs(seed, alphabet, n_seqs, n_sites, tile, seq_chunk, wq,
             t(emit), kw)
 
 
-def _general_case_inputs(seed, alphabet, n_seqs, n_sites, tile, seq_chunk,
-                         wq, unknown, planes, device, dirty_sites=None):
-    """Inputs of the general kernel: UNKNOWN cells at a fraction
-    ``unknown`` of all cells, or 1-2 cells at ``dirty_sites`` random sites;
-    ``planes`` None = the planes present."""
-    from weightedld_tpu_torch.ops import cuda_ld as K
-
+def _general_aln(seed, alphabet, n_seqs, n_sites, unknown, dirty_sites):
+    """The general kernel's case alignment: UNKNOWN cells at a fraction
+    ``unknown`` of all cells, or 1-2 cells at ``dirty_sites`` random
+    sites."""
     rng = np.random.default_rng(seed)
     aln = rng.choice(alphabet, size=(n_seqs, n_sites)).astype(np.int8)
     if dirty_sites is None:
@@ -570,6 +597,17 @@ def _general_case_inputs(seed, alphabet, n_seqs, n_sites, tile, seq_chunk,
         for s in rng.choice(n_sites, size=dirty_sites, replace=False):
             aln[rng.choice(n_seqs, size=rng.integers(1, 3), replace=False),
                 s] = 5
+    return aln
+
+
+def _general_case_inputs(seed, alphabet, n_seqs, n_sites, tile, seq_chunk,
+                         wq, unknown, planes, device, dirty_sites=None):
+    """Inputs of the general kernel: UNKNOWN cells at a fraction
+    ``unknown`` of all cells, or 1-2 cells at ``dirty_sites`` random sites;
+    ``planes`` None = the planes present."""
+    from weightedld_tpu_torch.ops import cuda_ld as K
+
+    aln = _general_aln(seed, alphabet, n_seqs, n_sites, unknown, dirty_sites)
     out = _case_inputs(seed, alphabet, n_seqs, n_sites, tile, seq_chunk, wq,
                        device, aln=aln)
     codes, wr, _auxc, ti, tj, em, kw = out
@@ -4852,9 +4890,331 @@ def phase_transport(tmp: Path) -> None:
         del sess
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the XLA tile engine
+# ---------------------------------------------------------------------------
+
+# Pairs whose r2 lies within XLA_EDGE of the threshold may fall on either
+# side of it between two engine families; values are held at the
+# cross-family bar.
+XLA_THR, XLA_EDGE = 0.1, 2e-5
+XLA_RTOL, XLA_ATOL = 2e-5, 1e-6
+# The library column's inputs, by kernel row: the kernel-timing cell's
+# factorized case (no UNKNOWN), its general case (P = 5, UNKNOWN at 1 % of
+# the sites), and the general case under unit weights.
+XLA_LIBRARY_INPUT = {name: ("unit" if name == "ld_general_unit" else
+                            "general" if name.startswith("ld_general")
+                            else "factorized") for name in KERNELS}
+
+
+def _stream_map(sess) -> dict:
+    """``{(pos_a, pos_b): (d, d', r2)}`` of one scan of ``sess``."""
+    out = {}
+    for _b, rec in sess.stream():
+        out.update(zip(zip(rec.pos_a.tolist(), rec.pos_b.tolist()),
+                       zip(rec.d.tolist(), rec.d_prime.tolist(),
+                           rec.r2.tolist())))
+    return out
+
+
+def _hold_engines(got: dict, want: dict, label: str) -> tuple[int, float]:
+    """The XLA engine's records ``got`` against the kernels' ``want``: the
+    same pairs but those within XLA_EDGE of the threshold on the side that
+    has them (counted), values at XLA_RTOL / XLA_ATOL; returns ``(edge
+    pairs, max abs difference)``."""
+    edge = 0
+    for key in set(got) ^ set(want):
+        r2 = (got.get(key) or want.get(key))[2]
+        if abs(r2 - XLA_THR) > XLA_EDGE:
+            raise AssertionError(f"{label}: pair {key} (r2 {r2}) is on one "
+                                 "side only")
+        edge += 1
+    both = got.keys() & want.keys()
+    worst = _hold_records({k: got[k] for k in both},
+                          {k: want[k] for k in both}, label,
+                          rtol=XLA_RTOL, atol=XLA_ATOL)
+    return edge, worst
+
+
+def _hold_tsv(got: Path, want: Path, raw_got: dict, raw_want: dict,
+              label: str, ordered: bool) -> tuple[int, int]:
+    """Two TSVs of the same input from the two engine families: equal
+    headers; rows equal (in the same order where ``ordered``) except a
+    pair's row present on one side only, whose r2 lies within XLA_EDGE of
+    the threshold, and rows that differ only at 4-dp ties, each differing
+    field one quantum apart and the raw values (``raw_*``, the engines'
+    unrounded records, already held by :func:`_hold_engines`) within 1e-6.
+    Returns ``(one-sided rows, tie rows)``; any other difference
+    raises."""
+    g_lines = got.read_text().splitlines()
+    w_lines = want.read_text().splitlines()
+    if g_lines[0] != w_lines[0]:
+        raise AssertionError(f"{label}: headers differ")
+    rows = []
+    for lines, other in ((g_lines, raw_want), (w_lines, raw_got)):
+        keyed = [((int(a), int(b)), ln) for ln in lines[1:]
+                 for a, b in [ln.split("\t", 2)[:2]]]
+        rows.append([(k, ln) for k, ln in keyed if k in other])
+    one_sided = len(g_lines) + len(w_lines) - 2 - len(rows[0]) - len(rows[1])
+    g_rows, w_rows = rows
+    if not ordered:
+        g_rows, w_rows = sorted(g_rows), sorted(w_rows)
+    if [k for k, _ in g_rows] != [k for k, _ in w_rows]:
+        raise AssertionError(f"{label}: the rows' pairs differ in order")
+    ties = 0
+    for (key, g), (_k, w) in zip(g_rows, w_rows):
+        if g == w:
+            continue
+        for a, b in zip(g.split("\t")[2:], w.split("\t")[2:]):
+            if a != b and abs(abs(float(a) - float(b)) - 1e-4) > 1e-9:
+                raise AssertionError(f"{label}: {g!r} vs {w!r}")
+        if max((abs(x - y) for x, y in zip(raw_got[key], raw_want[key])
+                if np.isfinite(x) or np.isfinite(y)), default=0.0) > 1e-6:
+            raise AssertionError(f"{label}: {g!r} vs {w!r}, raw "
+                                 f"{raw_got[key]} vs {raw_want[key]}")
+        ties += 1
+    return one_sided, ties
+
+
+def _counted_xla(fn, *args, **kwargs):
+    """``(fn's result, seconds, tile_stats_batch calls, kernel launches)``
+    of one call: the driver's ``tile_stats_batch`` wrapped to count."""
+    import torch
+
+    from weightedld_tpu_torch.ops import cuda_general, cuda_ld
+    from weightedld_tpu_torch.runtime import driver as drv
+
+    calls = [0]
+    orig = drv.tile_stats_batch
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return orig(*a, **kw)
+
+    cuda_ld.reset_launches()
+    cuda_general.reset_launches()
+    drv.tile_stats_batch = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    finally:
+        drv.tile_stats_batch = orig
+    launched = {k: v for k, v in {**cuda_ld.launches,
+                                  **cuda_general.launches}.items() if v}
+    return out, sec, calls[0], launched
+
+
+def _xla_scan(sess, label: str, n_pairs: int, scans: int = 2) -> dict:
+    """``scans`` ``stream()`` scans of an XLA-engine session on the card
+    (the first learns the capacities), each with no kernel launch and one
+    ``tile_stats_batch`` per batch and shard; prints each."""
+    import torch
+
+    out = None
+    for scan in range(1, scans + 1):
+        torch.cuda.reset_peak_memory_stats()
+        out, sec, calls, launched = _counted_xla(_stream_map, sess)
+        if launched or calls != sess.n_batches * sess.n_local:
+            raise AssertionError(f"{label}: the XLA scan launched "
+                                 f"{launched} and called tile_stats_batch "
+                                 f"{calls} times")
+        log(f"[xla] {label}, engine='xla', scan {scan}: {sec:.4f} s, "
+            f"{n_pairs / sec:.4g} pairs/s, {len(out)} records, T="
+            f"{sess.cfg.tile} k={sess.cfg.tiles_per_shard_batch} "
+            f"{sess.n_batches} batches x {sess.n_local} shards, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, no "
+            f"kernel launch | {card_line()}")
+    return out
+
+
+def _xla_against_kernels(res, label: str, tmp: Path, ordered: bool) -> dict:
+    """(a) / (b): an ``engine="xla"`` session and the kernels' session on
+    the same prepared input at r2 > XLA_THR: records and ``run_to_tsv``
+    bytes held to each other.  Returns the XLA records."""
+    import torch
+
+    from weightedld_tpu_torch.runtime.driver import (DriverConfig, LdSession,
+                                                     run_to_tsv)
+
+    s = res.alignment.shape[1]
+    n_pairs = s * (s - 1) // 2
+    args = (res.alignment, res.weights, res.site_map)
+    xla = LdSession(*args, DriverConfig(engine="xla", r2_threshold=XLA_THR),
+                    device="cuda")
+    got = _xla_scan(xla, label, n_pairs)
+    kern = LdSession(*args, DriverConfig(r2_threshold=XLA_THR),
+                     device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = _stream_map(kern)
+    torch.cuda.synchronize()
+    k_sec = time.perf_counter() - t0
+    edge, worst = _hold_engines(got, want, label)
+    log(f"[xla] {label}: {len(got)} records against the kernels' "
+        f"{len(want)} ({kern.phase_tiles}, scan {k_sec:.4f} s), {edge} "
+        f"pairs within {XLA_EDGE} of r2 = {XLA_THR} on one side, max "
+        f"|xla - kernels| {worst}")
+    outs = {}
+    for eng in ("xla", "auto"):
+        outs[eng] = tmp / f"xla_{label}_{eng}.tsv"
+        # The kernels at the XLA engine's tile: the same plan order.
+        cfg = DriverConfig(engine=eng, r2_threshold=XLA_THR,
+                           tile=xla.cfg.tile)
+        n, sec, calls, launched = _counted_xla(
+            run_to_tsv, *args, outs[eng], cfg, device="cuda")
+        if (eng == "xla") != (calls > 0) or (eng == "xla") == bool(launched):
+            raise AssertionError(f"{label} run_to_tsv engine={eng}: "
+                                 f"tile_stats_batch {calls} calls, "
+                                 f"launches {launched}")
+        log(f"[xla] {label} run_to_tsv(engine={eng!r}, tile="
+            f"{xla.cfg.tile}): {n} rows in {sec:.3f} s, launches "
+            f"{launched}")
+    one_sided, ties = _hold_tsv(outs["xla"], outs["auto"], got, want,
+                                label, ordered)
+    log(f"[xla] {label}: run_to_tsv bytes equal "
+        f"{'in order' if ordered else 'row for row by pair'} but "
+        f"{one_sided} rows of threshold pairs on one side and {ties} 4-dp "
+        f"tie rows (raw values within 1e-6)")
+    return got
+
+
+def _library_ms(kernel_ms: dict | None) -> dict:
+    """(d): CUDA-event time of ``tile_stats_batch`` over the kernel-timing
+    plan (N = 1,000 padded to 1,024 x S = 8,192, T = 256, 528 tile pairs),
+    on each kernel row's input, in pieces of the engine's auto batch;
+    checks that ``torch.set_float32_matmul_precision("high")`` changes no
+    bit; returns ``{kernel row: library ms}``."""
+    import torch
+
+    from weightedld_tpu_torch.core.ld_tiled import (_tile_one_hot,
+                                                    tile_stats_batch)
+    from weightedld_tpu_torch.core.paircore import f32_products
+    from weightedld_tpu_torch.parallel.triangle import plan_tiles
+    from weightedld_tpu_torch.runtime.driver import (
+        resolve_xla_tiles_per_batch)
+
+    dev = torch.device("cuda")
+    tile, n_pad = 256, 1024
+    _r, aln_f, w_f = _case_host(11, (0, 1, 4), N_HEAD, S_TIMED, "int8x3")
+    aln_g = _general_aln(31, (0, 1, 2, 3, 4), N_HEAD, S_TIMED, 0.0,
+                         S_TIMED // 100)
+    _r, _a, w_g = _case_host(31, (0, 1, 2, 3, 4), N_HEAD, S_TIMED, "int8x3",
+                             aln=aln_g)
+    plan = plan_tiles(S_TIMED, tile)
+    ti, tj = (torch.from_numpy(x).to(dev) for x in (plan.tile_i, plan.tile_j))
+    em = torch.ones_like(ti)
+    k = resolve_xla_tiles_per_batch(None, plan.n_tiles, tile, n_pad,
+                                    XLA_THR, dev)
+    flop = 2 * 2 * (5 * tile) ** 2 * n_pad * plan.n_tiles
+    card = card_line()
+    lib = {}
+    for case, (aln, w) in {"factorized": (aln_f, w_f),
+                           "general": (aln_g, w_g),
+                           "unit": (aln_g, np.ones(N_HEAD, np.float32))
+                           }.items():
+        codes = np.full((n_pad, S_TIMED), 5, np.int8)
+        codes[:N_HEAD] = aln
+        wp = np.zeros(n_pad, np.float32)
+        wp[:N_HEAD] = w
+        codes, wp = (torch.from_numpy(x).to(dev) for x in (codes, wp))
+
+        def run():
+            return [tile_stats_batch(codes, wp, ti[p:p + k], tj[p:p + k],
+                                     em[p:p + k], tile=tile,
+                                     n_sites=S_TIMED)
+                    for p in range(0, plan.n_tiles, k)]
+
+        torch.cuda.reset_peak_memory_stats()
+        lib[case], out = _time_cuda(run, 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        before = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        try:
+            high = run()
+        finally:
+            torch.set_float32_matmul_precision(before)
+        for a, b in zip(out, high):
+            for f in a._fields:
+                x, y = getattr(a, f), getattr(b, f)
+                if x.dtype != torch.bool:
+                    x, y = x.view(torch.int32), y.view(torch.int32)
+                if not torch.equal(x, y):
+                    raise AssertionError(
+                        f"[xla] {case}: float32_matmul_precision('high') "
+                        f"changed {f}")
+        kept = sum(int(o.keep.sum()) for o in out)
+        del out, high
+        # The two float32 products alone, on operands built beforehand.
+        ops = [(_tile_one_hot(codes, ti[p:p + k], tile),
+                _tile_one_hot(codes, tj[p:p + k], tile))
+               for p in range(0, plan.n_tiles, k)]
+        with f32_products():
+            mm_ms, _mm = _time_cuda(lambda: [
+                (torch.bmm(a.transpose(1, 2), b),
+                 torch.bmm(a.transpose(1, 2), b)) for a, b in ops], 3)
+        del ops, _mm
+        log(f"[xla] library {case}: tile_stats_batch over {plan.n_tiles} "
+            f"tiles (N_pad {n_pad}, T {tile}) in pieces of {k}: "
+            f"{lib[case]:.3f} ms, {flop / (lib[case] / 1e3):.4g} FLOP/s "
+            f"of its float32 products; the two products alone {mm_ms:.3f} "
+            f"ms ({flop / (mm_ms / 1e3):.4g} FLOP/s); peak {peak:.2f} GiB, "
+            f"{kept} kept pairs; bits unchanged under "
+            f"float32_matmul_precision('high') | {card}")
+        del codes, wp
+    rows = {}
+    for name in KERNELS:
+        rows[name] = lib[XLA_LIBRARY_INPUT[name]]
+        ratio = ("" if not kernel_ms else
+                 f", kernel {kernel_ms[name]:.3f} ms, kernel / library "
+                 f"{kernel_ms[name] / rows[name]:.4f}")
+        log(f"[xla] library_ms {name}: {rows[name]:.3f} ms "
+            f"({XLA_LIBRARY_INPUT[name]} input){ratio} | {card}")
+    return rows
+
+
+def phase_xla(tmp: Path, kernel_ms: dict | None = None) -> dict:
+    """The XLA tile engine on the card (writes its own inputs when run
+    alone); returns the library ms of each kernel row."""
+    from weightedld_tpu_torch.pipeline import prepare
+    from weightedld_tpu_torch.runtime.driver import DriverConfig, LdSession
+
+    # (a) the headline.
+    npz = tmp / "headline_prepared.npz"   # the main phase's, or made here
+    if npz.exists():
+        with np.load(npz) as f:
+            res = SimpleNamespace(**{k: f[k] for k in f.files})
+    else:
+        res = prepare(headline_vcf(tmp, "xla")[0])
+    head = _xla_against_kernels(res, "headline", tmp, ordered=True)
+    # (c) G = 2 on cuda:0 at the G = 1 session's tiles per batch.
+    one = LdSession(res.alignment, res.weights, res.site_map,
+                    DriverConfig(engine="xla", r2_threshold=XLA_THR),
+                    device="cuda")
+    two = LdSession(res.alignment, res.weights, res.site_map,
+                    DriverConfig(engine="xla", r2_threshold=XLA_THR,
+                                 tiles_per_shard_batch=one.cfg
+                                 .tiles_per_shard_batch),
+                    devices=["cuda:0", "cuda:0"])
+    del one
+    s = res.alignment.shape[1]
+    got = _xla_scan(two, "headline G = 2", s * (s - 1) // 2, scans=1)
+    _hold_records(got, head, "xla G = 2 vs G = 1", rtol=0.0, atol=0.0)
+    log(f"[xla] headline G = 2 on cuda:0: {len(got)} records, equal to "
+        f"G = 1's at k = {two.cfg.tiles_per_shard_batch}")
+    del two, got, head
+    # (b) the ambiguous FASTA against the hybrid session.
+    fasta, _aln, _trips, _dirty = ambiguous_fasta(tmp, "xla")
+    _xla_against_kernels(prepare(fasta), "ambiguous", tmp, ordered=False)
+    # (d) the library column.
+    return _library_ms(kernel_ms)
+
+
 DEFAULT_PHASES = ("build", "kernels", "main", "cpu-vs-card", "analytics",
                   "ambiguous", "ingest", "windows", "flags", "multi", "api",
-                  "transport")
+                  "transport", "xla")
 
 
 def main() -> int:
@@ -4862,9 +5222,9 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of build, kernels, main, "
                     "cpu-vs-card, analytics, ambiguous, ingest, windows, "
-                    "flags, multi, api, transport, profile, entries, pace, "
-                    "general, gpace, yardstick and scan (default: the "
-                    "first twelve, which the result line needs)")
+                    "flags, multi, api, transport, xla, profile, entries, "
+                    "pace, general, gpace, yardstick and scan (default: the "
+                    "first thirteen, which the result line needs)")
     ap.add_argument("--against", default=None, metavar="DIR",
                     help="the scan phase: another checkout to time beside "
                     "this one, e.g. the parent commit unpacked by git "
@@ -4963,6 +5323,10 @@ def main() -> int:
             t0 = time.monotonic()
             phase_transport(tmp)
             done("transport", t0)
+        if "xla" in phases:
+            t0 = time.monotonic()
+            phase_xla(tmp, res["ms"] if res else None)
+            done("xla", t0)
         if "profile" in phases:
             phase_profile()
         if "entries" in phases:
@@ -4999,7 +5363,8 @@ def main() -> int:
         raise AssertionError(f"no main-path launch of {missing}")
     # No single PyTorch call computes any of these functions (per-pair
     # major/dmin selection, the weighted combine and the pair algebra), so
-    # library_ms is null.
+    # library_ms is null; the xla phase prints the time of the whole
+    # function in plain PyTorch (the XLA tile engine) beside each row.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],

@@ -490,3 +490,45 @@ def test_analytics_equal_on_cpu_and_card(cuda_device, kernel, weight_quant):
     np.testing.assert_array_equal(np.sort(cpu[4].r2), np.sort(card[4].r2))
     for f in ("keep", "d", "d_prime", "r2"):
         np.testing.assert_array_equal(cpu[5][f], card[5][f])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unit", (False, True))
+def test_xla_engine_on_card_equals_cpu(cuda_device, unit):
+    """``engine="xla"`` on the card against the CPU (cuBLAS against the CPU
+    GEMM: summation orders differ, so values at rtol 1e-5 / atol 1e-6 and
+    the same kept pairs), with no kernel launched and no bit changed by
+    ``float32_matmul_precision("high")``."""
+    rng = np.random.default_rng(15)
+    aln = _scattered_alignment(rng, 200, 700, 20)
+    w = np.ones(200, np.float32) if unit \
+        else (rng.random(200) + 0.05).astype(np.float32)
+    cfg = DriverConfig(engine="xla", tile=128)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        sess = LdSession(aln, w, np.arange(700) * 2, cfg, device=dev)
+        assert sess.phase_tiles["xla"] == sess.plan.n_tiles
+        K.reset_launches()
+        G.reset_launches()
+        recs = [r for _b, r in sess.stream()]
+        assert not any({**K.launches, **G.launches}.values())
+        runs[str(dev)] = [np.concatenate([getattr(r, f) for r in recs])
+                          for f in ("pos_a", "pos_b", "d", "d_prime", "r2")]
+        if dev != "cpu":
+            before = torch.get_float32_matmul_precision()
+            torch.set_float32_matmul_precision("high")
+            try:
+                high = [r for _b, r in sess.stream()]
+            finally:
+                torch.set_float32_matmul_precision(before)
+            for f, want in zip(("pos_a", "pos_b", "d", "d_prime", "r2"),
+                               runs[str(dev)]):
+                got = np.concatenate([getattr(r, f) for r in high])
+                assert got.tobytes() == want.tobytes(), f
+    cpu, card = runs["cpu"], runs[str(cuda_device)]
+    np.testing.assert_array_equal(cpu[0], card[0])
+    np.testing.assert_array_equal(cpu[1], card[1])
+    for a, b in zip(cpu[2:], card[2:]):
+        fin = np.isfinite(a)
+        np.testing.assert_array_equal(fin, np.isfinite(b))
+        np.testing.assert_allclose(b[fin], a[fin], rtol=RTOL, atol=ATOL)

@@ -1,7 +1,18 @@
-"""Device-side record compaction over a batch of tiles.
+"""The XLA tile engine's batch function, and the device-side record
+compaction over a batch of tiles.
 
-Counterpart of ``round_fixed_exact`` and ``compact_tile_stats``
-(``weightedld_tpu/core/ld_tiled.py:82-310``).  A batch's survivors are the
+:func:`pad_alignment` and :func:`tile_stats_batch` are the counterparts of
+``weightedld_tpu/core/ld_tiled.py:27-76``, the tile function of
+``DriverConfig(engine="xla")`` sessions: each tile pair's ``[N, T]`` column
+slices become one-hot ``[N, 5T]`` operands, their joint tables come from two
+batched float32 matrix products over N (``torch.bmm``, cuBLAS on the card,
+in true float32 whatever the process's matmul precision), and the port's
+``finalize_pair_tile`` turns them into the ``[K, T, T]`` stats.  No kernel
+of this package runs: it is the JAX package's portable engine, and on the
+card the whole-function library yardstick of the CUDA kernels.
+
+The compaction is the counterpart of ``round_fixed_exact`` and
+``compact_tile_stats`` (``ld_tiled.py:82-310``).  A batch's survivors are the
 pairs of ``keep & (r2 > threshold)`` over the flattened ``[K, T, T]``
 batch, gathered in (tile, row, col) order, the order of the JAX
 compactions.  Two forms:
@@ -39,7 +50,73 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .paircore import PairStats
+from .encode import N_ALLELES, UNKNOWN
+from .paircore import PairStats, f32_products, finalize_pair_tile
+
+
+def pad_alignment(alignment: np.ndarray, tile: int) -> np.ndarray:
+    """Pad ``[N, S]`` codes to ``[N, S_pad]`` with UNKNOWN columns (copy
+    of ``ld_tiled.py:27-36``)."""
+    n, s = alignment.shape
+    s_pad = -(-s // tile) * tile
+    if s_pad == s:
+        return alignment
+    out = np.full((n, s_pad), UNKNOWN, dtype=alignment.dtype)
+    out[:, :s] = alignment
+    return out
+
+
+def _tile_one_hot(codes_pad: torch.Tensor, tiles: torch.Tensor,
+                  tile: int) -> torch.Tensor:
+    """``[K, N, 5T]`` float32 one-hot of each tile's ``[N, T]`` column slice
+    (column ``5a + s`` is allele ``s`` at the tile's site ``a``; UNKNOWN is
+    all-zero), a view of an ``[N, K, 5T]`` buffer."""
+    n, k = codes_pad.shape[0], tiles.shape[0]
+    lane = torch.arange(tile, device=codes_pad.device)
+    cols = (tiles.to(torch.int64)[:, None] * tile + lane).reshape(-1)
+    sl = codes_pad.index_select(1, cols)                   # [N, K * T]
+    alleles = torch.arange(N_ALLELES, dtype=sl.dtype, device=sl.device)
+    oh = (sl[:, :, None] == alleles).to(torch.float32)     # [N, K * T, 5]
+    return oh.view(n, k, 5 * tile).transpose(0, 1)
+
+
+def tile_stats_batch(codes_pad: torch.Tensor, weights: torch.Tensor,
+                     tile_i: torch.Tensor, tile_j: torch.Tensor,
+                     emit: torch.Tensor, *, tile: int, n_sites: int,
+                     ) -> PairStats:
+    """LD statistics for a batch of site-pair tiles (``ld_tiled.py:38-73``).
+
+    ``codes_pad`` is ``[N, S_pad]`` int8 (site-padded with UNKNOWN,
+    :func:`pad_alignment`), ``weights`` ``[N]`` float32, ``tile_i`` /
+    ``tile_j`` ``[K]`` tile coordinates (``tile_i <= tile_j``) and ``emit``
+    ``[K]`` (0 or False for padding tiles, whose pairs are dropped).
+    Returns :class:`PairStats` of ``[K, T, T]`` tensors on the codes'
+    device, ``keep`` already holding ``(gi < gj) & (gj < n_sites) & emit``.
+
+    ``Ju`` and ``Jw`` are ``[K, 5T, 5T]`` products of the one-hot operands
+    over N, the weighted one with each row scaled by its weight (exact:
+    the one-hot cells are 0 or 1), both in true float32
+    (:func:`~weightedld_tpu_torch.core.paircore.f32_products`); the GEMM's
+    summation order is the library's, not XLA's.  Each is ``[K, T, 5, T,
+    5]`` in memory, read by the finalize as a ``[K, T, T, 5, 5]`` view."""
+    k = tile_i.shape[0]
+    oh_a = _tile_one_hot(codes_pad, tile_i, tile)
+    oh_b = _tile_one_hot(codes_pad, tile_j, tile)
+    with f32_products():
+        ju = torch.bmm(oh_a.transpose(1, 2), oh_b)
+        oh_a *= weights.to(torch.float32)[:, None]
+        jw = torch.bmm(oh_a.transpose(1, 2), oh_b)
+    del oh_a, oh_b
+    tables = [x.view(k, tile, N_ALLELES, tile, N_ALLELES).permute(0, 1, 3, 2, 4)
+              for x in (jw, ju)]
+    st = finalize_pair_tile(*tables)
+    del tables, jw, ju
+    lane = torch.arange(tile, device=codes_pad.device)
+    gi = tile_i.to(torch.int64)[:, None] * tile + lane         # [K, T]
+    gj = tile_j.to(torch.int64)[:, None] * tile + lane
+    valid = ((gi[:, :, None] < gj[:, None, :]) & (gj < n_sites)[:, None, :]
+             & (emit != 0)[:, None, None])
+    return PairStats(st.d, st.d_prime, st.r2, st.keep & valid)
 
 
 def threshold_mask(stats: PairStats, r2_threshold: float) -> torch.Tensor:

@@ -16,13 +16,17 @@ computes D, D' and r2 (reference ``WeightedLD.py:183-284``; see the JAX
 module's docstring for every parity note).  This module is the dense
 engine's core and the CPU oracle of the port.
 
-The contractions run in float32.  On CUDA that relies on PyTorch's default
-``torch.backends.cuda.matmul.allow_tf32 == False``: TF32 keeps about three
-decimal digits and would corrupt the weighted sums.
+The contractions run in true float32 whatever the process set
+(:func:`f32_products`): TF32 (``torch.set_float32_matmul_precision("high")``
+on CUDA) keeps about three decimal digits and bf16 (``"medium"``, on the
+CPU's oneDNN too) fewer, either of which would corrupt the weighted sums
+(the JAX package asks for ``precision=HIGHEST`` for the same reason,
+``paircore.py:100-102``).
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import NamedTuple
 
 import torch
@@ -37,6 +41,36 @@ class PairStats(NamedTuple):
     d_prime: torch.Tensor
     r2: torch.Tensor
     keep: torch.Tensor  # bool: pair survived every skip rule
+
+
+@contextmanager
+def f32_products():
+    """Run the enclosed matrix products in true float32: the float32
+    precision of cuBLAS and of the CPU's oneDNN set to IEEE for the block
+    and restored after it, so ``torch.set_float32_matmul_precision("high")``
+    or ``"medium"`` (TF32, bf16) elsewhere in the process changes no bit of
+    them.  The setting is read when a product is launched, so the block
+    need not wait for the device.  Not thread-safe: it flips process-wide
+    flags."""
+    matmul = [b for b in (torch.backends.cuda.matmul,
+                          getattr(torch.backends.mkldnn, "matmul", None))
+              if hasattr(b, "fp32_precision")]
+    if matmul:                                     # torch >= 2.9
+        saved = [b.fp32_precision for b in matmul]
+        for b in matmul:
+            b.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            for b, v in zip(matmul, saved):
+                b.fp32_precision = v
+        return
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
 
 
 def one_hot_alleles(codes: torch.Tensor,
@@ -55,8 +89,9 @@ def pair_tables(codes_a: torch.Tensor, codes_b: torch.Tensor,
     oh_a = one_hot_alleles(codes_a, dtype)              # [N, Ta, 5]
     oh_b = one_hot_alleles(codes_b, dtype)              # [N, Tb, 5]
     oh_aw = oh_a * weights.to(dtype)[:, None, None]
-    jw = torch.einsum("nas,nbt->abst", oh_aw, oh_b)
-    ju = torch.einsum("nas,nbt->abst", oh_a, oh_b)
+    with f32_products():
+        jw = torch.einsum("nas,nbt->abst", oh_aw, oh_b)
+        ju = torch.einsum("nas,nbt->abst", oh_a, oh_b)
     return jw, ju
 
 
@@ -74,15 +109,19 @@ def major_dom_minor(cnt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _select2(jw: torch.Tensor, sa: torch.Tensor,
              tb: torch.Tensor) -> torch.Tensor:
-    """``jw[a, b, sa[a,b], tb[a,b]]`` for ``jw`` shaped [Ta, Tb, 5, 5]."""
-    row = torch.take_along_dim(jw, sa[:, :, None, None].long(), dim=2)[:, :, 0, :]
-    return torch.take_along_dim(row, tb[:, :, None].long(), dim=2)[:, :, 0]
+    """``jw[..., a, b, sa[..., a, b], tb[..., a, b]]`` for ``jw`` shaped
+    [..., Ta, Tb, 5, 5]."""
+    row = torch.take_along_dim(jw, sa[..., None, None].long(),
+                               dim=-2)[..., 0, :]
+    return torch.take_along_dim(row, tb[..., None].long(), dim=-1)[..., 0]
 
 
 def finalize_pair_tile(jw: torch.Tensor, ju: torch.Tensor) -> PairStats:
-    """Element-wise LD finalization over a pair tile (``paircore.py:141-219``)."""
-    cnt_a = torch.round(ju.sum(dim=3)).to(torch.int32)    # [Ta, Tb, 5]
-    cnt_b = torch.round(ju.sum(dim=2)).to(torch.int32)
+    """Element-wise LD finalization over a pair tile (``paircore.py:141-219``),
+    or over a batch of them: ``jw`` and ``ju`` shaped ``[..., Ta, Tb, 5,
+    5]`` (any strides), the stats ``[..., Ta, Tb]``."""
+    cnt_a = torch.round(ju.sum(dim=-1)).to(torch.int32)   # [..., Ta, Tb, 5]
+    cnt_b = torch.round(ju.sum(dim=-2)).to(torch.int32)
 
     distinct_a = (cnt_a > 0).sum(dim=-1)
     distinct_b = (cnt_b > 0).sum(dim=-1)

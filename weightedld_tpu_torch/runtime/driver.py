@@ -32,6 +32,14 @@ general per-pair):
   kernel (all of the triangle when no tile pair is safe);
 * ``kernel="general"``: the general kernel over the whole triangle.
 
+That is the ``"pallas"`` engine, which ``DriverConfig.engine="auto"``
+resolves to on every device.  ``engine="xla"`` runs the JAX package's
+portable tile engine instead (its XLA branch, ``driver.py:785-806``):
+``core/ld_tiled.tile_stats_batch`` over sequence-major codes padded with
+UNKNOWN sites and float32 weights, at an auto tile of 128, with no
+packing, split, planes or weight quantization; every batch loop, mask and
+merge below is the same.
+
 A session uploads the padded site-major codes, the packed weights, the
 per-site aux and the tile plan once; each batch then runs one kernel
 launch, thresholds, and compacts its records on the device.  Its input is
@@ -106,13 +114,15 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from ..core.henikoff import henikoff_weights_site_major
+from ..core.henikoff import henikoff_weights, henikoff_weights_site_major
 from ..core.ld_dense import LdRecords
 from ..core.ld_tiled import (
     compact_fixed,
     compact_tile_stats,
     decode_block,
+    pad_alignment,
     threshold_mask,
+    tile_stats_batch,
 )
 from ..core.sites import site_histogram_host, site_histogram_host_site_major
 from ..device import resolve_device
@@ -173,6 +183,10 @@ SEQ_CHUNK_STEP = 64
 # the scale products and sums, as with the JAX package's <= 2,048 chunks.
 MAX_SEQ_CHUNK = 131072
 DEFAULT_TILE = 256
+# The XLA tile engine's auto tile: the JAX package's off-TPU value
+# (driver.py:245), so a default run's row order is the JAX engine's.
+XLA_TILE = 128
+ENGINES = ("auto", "pallas", "xla")
 # Device bytes per site pair of one batch: d, d' and r2 float32 plus keep.
 # The window and cross masks each allocate one bool per pair while they
 # fold into keep, freed before the threshold mask: no higher peak.
@@ -181,6 +195,14 @@ _STAT_BYTES = 13
 # differ by less than 2^32, so a larger window keeps every pair (and the
 # int64 sums stay far from overflow).
 _MASK_CLAMP = 1 << 32
+# The XLA tile engine's device working set per batch and shard (the
+# one-hot operands, the joint tables and the finalize's temporaries), and
+# its bytes per site pair beyond the operands: Jw and Ju (2 x 25 float32)
+# and the finalize's [K, T, T] and [K, T, T, 5] temporaries (~250 B at
+# their peak), the stats and the threshold mask of the two batches a
+# stream holds (2 x 14 B).
+_XLA_BATCH_BYTES = 4 << 30
+_XLA_PAIR_BYTES = 512
 # Speculative-compaction capacity ceiling, records per shard and batch (the
 # JAX value, ``driver.py:47``): a block of 2^22 records is 84 MB of pinned
 # host buffer per slice in flight; a batch past it takes the exact path.
@@ -205,14 +227,24 @@ class SiteMajorCodes:
 
 @dataclass
 class DriverConfig:
-    tile: int | None = None         # site-tile side (None = auto: 256)
+    tile: int | None = None         # site-tile side (None = auto: 256;
+                                    # 128 under engine="xla")
     tiles_per_shard_batch: int | None = None  # tiles per dispatch (None =
                                     # auto: a 2 GiB stats budget on CUDA,
-                                    # 8 on the CPU)
+                                    # 4 GiB of working set under
+                                    # engine="xla", 8 on the CPU)
     r2_threshold: float | None = None  # None = emit every surviving pair
     progress_every_s: float = 10.0  # least seconds between on_progress
                                     # reports (the last batch always
                                     # reports)
+    engine: str = "auto"            # auto | pallas | xla: "auto" and
+                                    # "pallas" = the CUDA kernels on the
+                                    # card, their plain versions on the
+                                    # CPU; "xla" = the JAX package's
+                                    # portable tile engine
+                                    # (core/ld_tiled.tile_stats_batch,
+                                    # float32 matrix products) on the
+                                    # session's device
     seq_chunk: int | None = None    # sequence columns per f32 combine (None
                                     # = auto: all of N in one chunk, see
                                     # resolve_seq_chunk)
@@ -309,8 +341,24 @@ def validate_hist_edges(edges) -> tuple:
     return edges
 
 
-def resolve_tile(tile: int | None) -> int:
-    """Site-tile side.  Auto: 256.  On the H100 the tile only sets the
+def _resolve_engine(engine: str) -> str:
+    """The engine a session runs: ``"auto"`` is ``"pallas"`` on every
+    device of the port, the hand-written CUDA kernels on the card and their
+    plain versions on the CPU (the JAX package resolves ``"auto"`` to
+    ``"xla"`` off a TPU, ``driver.py:130-140``: the kernels are the port's
+    reason to exist).  ``"xla"`` runs only when asked for.  Unlike the JAX
+    package, which sends any other string to its XLA branch, another value
+    raises ``ValueError``."""
+    if engine not in ENGINES:
+        raise ValueError(
+            f"engine must be auto|pallas|xla, got {engine!r}")
+    return "pallas" if engine == "auto" else engine
+
+
+def resolve_tile(tile: int | None, engine: str = "pallas") -> int:
+    """Site-tile side.  Auto: 128 under the XLA engine (the JAX package's
+    value off a TPU, ``driver.py:245``), else 256.  On the H100 the tile
+    only sets the
     granularity of the plan, of the ``[K, T, T]`` batch outputs and of the
     diagonal waste: the factorized kernel's CTA covers a 64 x 32 pair block
     in every weight mode whatever T is (any multiple of 64 keeps every
@@ -318,7 +366,9 @@ def resolve_tile(tile: int | None) -> int:
     tile wastes half of 2^16 pairs, < 1% of the work for S >= 16k, and the
     plan stays small (18,528 tiles at S = 49,152).  An explicit ``tile``
     always wins."""
-    return DEFAULT_TILE if tile is None else tile
+    if tile is not None:
+        return tile
+    return XLA_TILE if _resolve_engine(engine) == "xla" else DEFAULT_TILE
 
 
 def resolve_seq_chunk(seq_chunk: int | None, n_seqs: int) -> int:
@@ -373,6 +423,34 @@ def resolve_tiles_per_batch(tiles_per_batch: int | None, n_tiles: int,
         return max(1, min(8, share))
     t2 = tile * tile
     cap = max(1, (1 << 31) // (t2 * _STAT_BYTES))
+    if r2_threshold is None:
+        cap = min(cap, max(1, (1 << 30) // (t2 * 40)))
+    return max(1, min(cap, share))
+
+
+def resolve_xla_tiles_per_batch(tiles_per_batch: int | None, n_tiles: int,
+                                tile: int, n_rows: int,
+                                r2_threshold: float | None,
+                                device: torch.device,
+                                n_shards: int = 1) -> int:
+    """Tiles per shard and dispatch of the XLA tile engine, at most a
+    shard's share of the plan.  On the CPU: 8, the JAX package's value
+    (``driver.py:633``).  On CUDA: as many as fit ``_XLA_BATCH_BYTES`` of
+    working set, each tile pair taking its two one-hot ``[N, 5T]`` float32
+    operands and their bool predecessor (45 B per sequence row and site)
+    and ``_XLA_PAIR_BYTES`` per site pair: 303 tiles at T = 128 and N =
+    1,000, whose batch peaks at 2.5 GiB on the H100 (``PERF.md``).  Without an r2 threshold the records cap it as in
+    :func:`resolve_tiles_per_batch`.  The budget is fixed, not read from
+    the card, so that a checkpoint resumes at the same k.  An explicit
+    value always wins."""
+    if tiles_per_batch is not None:
+        return tiles_per_batch
+    share = cdiv(n_tiles, n_shards)
+    if device.type != "cuda":
+        return max(1, min(8, share))
+    t2 = tile * tile
+    cap = max(1, _XLA_BATCH_BYTES // (45 * n_rows * tile
+                                      + _XLA_PAIR_BYTES * t2))
     if r2_threshold is None:
         cap = min(cap, max(1, (1 << 30) // (t2 * 40)))
     return max(1, min(cap, share))
@@ -498,7 +576,12 @@ class LdSession:
         self.n_procs = process_count()
         self.n_shards = global_shard_count(self.n_local)
         self.gather_s = 0.0   # seconds spent merging shards' records
+        self.engine = _resolve_engine(cfg.engine)
         sm = alignment if isinstance(alignment, SiteMajorCodes) else None
+        if sm is not None and self.engine != "pallas":
+            raise ValueError(
+                "SiteMajorCodes input requires the pallas engine "
+                f"(resolved engine: {self.engine!r})")
         if sm is not None:
             self.n_seqs, self.n_sites = sm.n_seqs, sm.n_sites
             want = self.required_padding(self.n_seqs, self.n_sites, cfg)
@@ -538,18 +621,23 @@ class LdSession:
         # No UNKNOWN anywhere: per-pair major/dmin are per-site properties
         # and the factorized kernel is exact.  With UNKNOWNs it still is
         # when every site's count margins absorb the worst per-pair
-        # removals.  kernel="general" skips the factorized selection.
-        self.planes, has_unknown = detect_planes_unknown(valid)
-        del valid
+        # removals.  kernel="general" skips the factorized selection.  The
+        # XLA engine decides none of this, so it never packs or splits the
+        # plan (JAX decides them under its pallas engine only,
+        # driver.py:370-411, :587).
+        self.planes = None
         majmin = False
         site_counts = None
-        if cfg.kernel == "auto":
-            if not has_unknown:
-                majmin = True
-            else:
-                site_counts = self._host_counts()
-                majmin = majmin_safe_with_unknown(None, site_counts,
-                                                  n_seqs=self.n_seqs)
+        if self.engine == "pallas":
+            self.planes, has_unknown = detect_planes_unknown(valid)
+            if cfg.kernel == "auto":
+                if not has_unknown:
+                    majmin = True
+                else:
+                    site_counts = self._host_counts()
+                    majmin = majmin_safe_with_unknown(None, site_counts,
+                                                      n_seqs=self.n_seqs)
+        del valid
         if cfg.cross_split is not None:
             if not 0 < cfg.cross_split < self.n_sites:
                 raise ValueError(
@@ -584,7 +672,7 @@ class LdSession:
                 self.windowed_packed = (cfg.max_site_distance is not None
                                         or cfg.max_bp_distance is not None)
 
-        tile = resolve_tile(cfg.tile)
+        tile = resolve_tile(cfg.tile, self.engine)
         seq_chunk = resolve_seq_chunk(cfg.seq_chunk, self.n_seqs)
         cfg = replace(cfg, tile=tile, seq_chunk=seq_chunk)
         self.cfg = cfg
@@ -605,10 +693,15 @@ class LdSession:
                                    max_bp_distance=cfg.max_bp_distance,
                                    site_map=site_map,
                                    cross_split=cfg.cross_split)
-        k = resolve_tiles_per_batch(cfg.tiles_per_shard_batch,
-                                    self.plan.n_tiles, tile,
-                                    cfg.r2_threshold, self.device,
-                                    self.n_shards)
+        if self.engine == "xla":
+            k = resolve_xla_tiles_per_batch(
+                cfg.tiles_per_shard_batch, self.plan.n_tiles, tile,
+                self.n_seqs, cfg.r2_threshold, self.device, self.n_shards)
+        else:
+            k = resolve_tiles_per_batch(cfg.tiles_per_shard_batch,
+                                        self.plan.n_tiles, tile,
+                                        cfg.r2_threshold, self.device,
+                                        self.n_shards)
         cfg = replace(cfg, tiles_per_shard_batch=k)
         self.cfg = cfg
         # The permuted site-index window reads each pair's original indices
@@ -633,7 +726,9 @@ class LdSession:
                 majmin = True  # weaker than the global test, still exact
             elif safe.any():
                 self.hybrid_safe = safe
-        if majmin:
+        if self.engine == "xla":
+            parts = [("xla", np.ones(self.plan.n_tiles, bool))]
+        elif majmin:
             parts = [("majmin", np.ones(self.plan.n_tiles, bool))]
         elif self.hybrid_safe is not None:
             parts = [("majmin", self.hybrid_safe),
@@ -642,91 +737,94 @@ class LdSession:
             parts = [("general", np.ones(self.plan.n_tiles, bool))]
         kernels = {kern for kern, _sel in parts}
 
-        n_pad = cdiv(self.n_seqs, seq_chunk) * seq_chunk
-        s_pad = self.plan.s_pad
-        dev = self.device
-        if sm is not None:
-            codes_host = np.ascontiguousarray(sm.codes)  # no second transpose
+        if self.engine == "xla":
+            self._upload_xla(alignment, weights)
         else:
-            codes_host = pad_alignment_site_major(alignment, tile, seq_chunk)
-        codes_dev = torch.from_numpy(codes_host).to(dev)
-        del codes_host
-        if self.site_perm is not None:
-            rows = np.concatenate([self.site_perm,
-                                   np.arange(self.n_sites, s_pad)])
-            codes_dev = codes_dev.index_select(0, torch.from_numpy(rows).to(dev))
-        if weights is None:
-            weights = henikoff_weights_site_major(
-                codes_dev, self.n_seqs)[:self.n_seqs].cpu().numpy()
+            n_pad = cdiv(self.n_seqs, seq_chunk) * seq_chunk
+            s_pad = self.plan.s_pad
+            dev = self.device
+            if sm is not None:
+                codes_host = np.ascontiguousarray(sm.codes)  # no second transpose
+            else:
+                codes_host = pad_alignment_site_major(alignment, tile, seq_chunk)
+            codes_dev = torch.from_numpy(codes_host).to(dev)
+            del codes_host
+            if self.site_perm is not None:
+                rows = np.concatenate([self.site_perm,
+                                       np.arange(self.n_sites, s_pad)])
+                codes_dev = codes_dev.index_select(0, torch.from_numpy(rows).to(dev))
+            if weights is None:
+                weights = henikoff_weights_site_major(
+                    codes_dev, self.n_seqs)[:self.n_seqs].cpu().numpy()
 
-        w_arr = np.asarray(weights, dtype=np.float32)
-        exact = weights_bf16_exact(w_arr)
-        unit = bool((w_arr == 1.0).all())
-        if exact or unit:
-            wquant = ""
-        elif cfg.weight_quant == "none":
-            wquant = "int8x3"
-        elif cfg.weight_quant == "split_bf16":
-            wquant = ""
-        else:
-            wquant = cfg.weight_quant
-        nlev = {"int8": 2, "int8x3": 3}.get(wquant, 0)
-        # Preplaned factorized planes: the JAX session never preplanes a
-        # hybrid phase 0 (driver.py:709), but both factorized entries give
-        # the same bits, so phase 0 takes the planes whenever they fit, as
-        # a pure factorized session does.  The general kernel's one-hot
-        # planes only under "on": JAX never selects them (measured neutral
-        # on the TPU, pallas_ld.py:40-41), and the codes are read anyway.
-        mm_bytes = (1 + nlev) * 2 * s_pad * n_pad
-        self._preplaned = "majmin" in kernels and (
-            cfg.preplaned == "on" or (
-                cfg.preplaned == "auto" and auto_preplaned(
-                    seq_chunk, mm_bytes, plane_budget(self.device))))
-        self.general_preplaned = "general" in kernels and cfg.preplaned == "on"
-        # Keyword arguments of every factorized kernel call of this session;
-        # the general kernel adds its planes.
-        self.kernel_kw = dict(tile=tile, n_sites=self.n_sites,
-                              seq_chunk=seq_chunk, exact_weights=exact,
-                              unit_weights=unit, wquant=wquant)
-        self.general_kw = dict(self.kernel_kw, planes=self.planes,
-                               preplaned=self.general_preplaned)
+            w_arr = np.asarray(weights, dtype=np.float32)
+            exact = weights_bf16_exact(w_arr)
+            unit = bool((w_arr == 1.0).all())
+            if exact or unit:
+                wquant = ""
+            elif cfg.weight_quant == "none":
+                wquant = "int8x3"
+            elif cfg.weight_quant == "split_bf16":
+                wquant = ""
+            else:
+                wquant = cfg.weight_quant
+            nlev = {"int8": 2, "int8x3": 3}.get(wquant, 0)
+            # Preplaned factorized planes: the JAX session never preplanes a
+            # hybrid phase 0 (driver.py:709), but both factorized entries give
+            # the same bits, so phase 0 takes the planes whenever they fit, as
+            # a pure factorized session does.  The general kernel's one-hot
+            # planes only under "on": JAX never selects them (measured neutral
+            # on the TPU, pallas_ld.py:40-41), and the codes are read anyway.
+            mm_bytes = (1 + nlev) * 2 * s_pad * n_pad
+            self._preplaned = "majmin" in kernels and (
+                cfg.preplaned == "on" or (
+                    cfg.preplaned == "auto" and auto_preplaned(
+                        seq_chunk, mm_bytes, plane_budget(self.device))))
+            self.general_preplaned = "general" in kernels and cfg.preplaned == "on"
+            # Keyword arguments of every factorized kernel call of this session;
+            # the general kernel adds its planes.
+            self.kernel_kw = dict(tile=tile, n_sites=self.n_sites,
+                                  seq_chunk=seq_chunk, exact_weights=exact,
+                                  unit_weights=unit, wquant=wquant)
+            self.general_kw = dict(self.kernel_kw, planes=self.planes,
+                                   preplaned=self.general_preplaned)
 
-        if nlev:
-            weights_host = pad_weights_int8(w_arr, seq_chunk, levels=nlev)
-        elif wquant == "lo_int8":
-            weights_host = pad_weights_lo_int8(w_arr, seq_chunk)
-        else:
-            weights_host = pad_weights(w_arr, seq_chunk)
-        self.weights = w_arr
-        self.weights_dev = torch.from_numpy(weights_host).to(dev)
-        self.auxc_dev = None
-        if "majmin" in kernels:
-            if site_counts is None:   # no packing: the input's site order
-                site_counts = self._host_counts()
-            auxc, _auxr = majmin_site_aux(None, s_pad, counts=site_counts)
-            self.auxc_dev = torch.from_numpy(auxc).to(dev)
-        self.planes_dev = self.xq_dev = self.gplanes_dev = None
-        if self._preplaned:
-            self.planes_dev = build_majmin_planes(codes_dev, self.auxc_dev,
-                                                  tile=tile)
             if nlev:
-                self.xq_dev = build_majmin_xq(self.planes_dev,
-                                              self.weights_dev, nlev)
-        if self.general_preplaned:
-            self.gplanes_dev = build_planes_tiled(codes_dev, tile=tile,
-                                                  planes=self.planes)
-        needs_codes = (("majmin" in kernels and not self._preplaned)
-                       or ("general" in kernels
-                           and not self.general_preplaned))
-        self.codes_dev = codes_dev if needs_codes else None
-        del codes_dev
-        # Every operand a batch reads, once per distinct shard device.
-        self._ops = [dict(zip(("codes", "weights", "auxc", "planes", "xq",
-                               "gplanes", "orig"), ops))
-                     for ops in replicate(
-                         self.devices, self.codes_dev, self.weights_dev,
-                         self.auxc_dev, self.planes_dev, self.xq_dev,
-                         self.gplanes_dev, self._orig_dev)]
+                weights_host = pad_weights_int8(w_arr, seq_chunk, levels=nlev)
+            elif wquant == "lo_int8":
+                weights_host = pad_weights_lo_int8(w_arr, seq_chunk)
+            else:
+                weights_host = pad_weights(w_arr, seq_chunk)
+            self.weights = w_arr
+            self.weights_dev = torch.from_numpy(weights_host).to(dev)
+            self.auxc_dev = None
+            if "majmin" in kernels:
+                if site_counts is None:   # no packing: the input's site order
+                    site_counts = self._host_counts()
+                auxc, _auxr = majmin_site_aux(None, s_pad, counts=site_counts)
+                self.auxc_dev = torch.from_numpy(auxc).to(dev)
+            self.planes_dev = self.xq_dev = self.gplanes_dev = None
+            if self._preplaned:
+                self.planes_dev = build_majmin_planes(codes_dev, self.auxc_dev,
+                                                      tile=tile)
+                if nlev:
+                    self.xq_dev = build_majmin_xq(self.planes_dev,
+                                                  self.weights_dev, nlev)
+            if self.general_preplaned:
+                self.gplanes_dev = build_planes_tiled(codes_dev, tile=tile,
+                                                      planes=self.planes)
+            needs_codes = (("majmin" in kernels and not self._preplaned)
+                           or ("general" in kernels
+                               and not self.general_preplaned))
+            self.codes_dev = codes_dev if needs_codes else None
+            del codes_dev
+            # Every operand a batch reads, once per distinct shard device.
+            self._ops = [dict(zip(("codes", "weights", "auxc", "planes", "xq",
+                                   "gplanes", "orig"), ops))
+                         for ops in replicate(
+                             self.devices, self.codes_dev, self.weights_dev,
+                             self.auxc_dev, self.planes_dev, self.xq_dev,
+                             self.gplanes_dev, self._orig_dev)]
 
         # Each phase's tile pairs striped over the G shards on its own
         # (driver.py:852-877), each shard's share padded to whole batches
@@ -775,15 +873,44 @@ class LdSession:
             if d.type == "cuda":
                 torch.cuda.synchronize(d)  # set-up time ends with its work
 
+    def _upload_xla(self, alignment: np.ndarray, weights) -> None:
+        """The XLA engine's operands (``driver.py:785-806``): the
+        sequence-major codes padded with UNKNOWN sites (:func:`pad_alignment`)
+        and float32 weights, once per distinct shard device.
+        ``weights=None`` computes the Henikoff weights on the device from
+        the uploaded codes (``henikoff_weights``, as JAX ``:792-795``).  No
+        packing, aux, planes or weight quantization."""
+        tile = self.cfg.tile
+        codes_dev = torch.from_numpy(np.ascontiguousarray(
+            pad_alignment(alignment, tile), dtype=np.int8)).to(self.device)
+        if weights is None:
+            weights = henikoff_weights(
+                codes_dev[:, :self.n_sites]).cpu().numpy()
+        self.weights = np.asarray(weights, dtype=np.float32)
+        self.weights_dev = torch.from_numpy(self.weights).to(self.device)
+        self.codes_dev = codes_dev
+        self.auxc_dev = self.planes_dev = self.xq_dev = self.gplanes_dev = None
+        self._preplaned = self.general_preplaned = False
+        self.kernel_kw = dict(tile=tile, n_sites=self.n_sites)
+        self.general_kw = None
+        self._ops = [dict(codes=c, weights=w, orig=None) for c, w
+                     in replicate(self.devices, codes_dev, self.weights_dev)]
+
     @staticmethod
     def required_padding(n_seqs: int, n_sites: int,
                          cfg: DriverConfig | None = None) -> tuple[int, int]:
         """``(s_pad, n_pad)`` a :class:`SiteMajorCodes` buffer must have to
         feed a session built with ``cfg``: the constructor's tile and seq
-        chunk resolution (``driver.py:889-918``; the port has one engine and
-        one tile rule), so a streaming reader can allocate the padded buffer
-        before it decodes."""
+        chunk resolution (``driver.py:889-918``; one tile rule), so a
+        streaming reader can allocate the padded buffer before it decodes.
+        Such a buffer feeds the pallas engine only: ``engine="xla"``
+        raises ``ValueError``, as in JAX."""
         cfg = cfg or DriverConfig()
+        engine = _resolve_engine(cfg.engine)
+        if engine != "pallas":
+            raise ValueError(
+                f"SiteMajorCodes input requires the pallas engine, got "
+                f"{engine!r}")
         tile = resolve_tile(cfg.tile)
         seq_chunk = resolve_seq_chunk(cfg.seq_chunk, n_seqs)
         return (cdiv(n_sites, tile) * tile,
@@ -812,10 +939,11 @@ class LdSession:
 
     @property
     def phase_tiles(self) -> dict[str, int]:
-        """Real tile pairs per kernel: ``{"majmin": n, "general": m}``."""
+        """Real tile pairs per kernel: ``{"majmin": n, "general": m}``, and
+        ``"xla"``, all of them, for an XLA-engine session."""
         out = {"majmin": 0, "general": 0}
         for ph in self._phases:
-            out[ph.kernel] += ph.n_tiles
+            out[ph.kernel] = out.get(ph.kernel, 0) + ph.n_tiles
         return out
 
     def _locate(self, b: int) -> tuple[_Phase, int]:
@@ -846,9 +974,14 @@ class LdSession:
         """``(wrapper, plain version, leading arguments, keywords)`` of the
         kernel that runs batch ``b`` on local shard ``shard``:
         ``wrapper(*args, tile_i, tile_j, emit, **kw)`` computes its
-        stats."""
+        stats.  Under the XLA engine both are
+        :func:`~weightedld_tpu_torch.core.ld_tiled.tile_stats_batch`, with
+        ``(codes, weights)`` and ``{tile, n_sites}``."""
         ph, _lb = self._locate(b)
         op = self._ops[shard]
+        if ph.kernel == "xla":
+            return (tile_stats_batch, tile_stats_batch,
+                    (op["codes"], op["weights"]), self.kernel_kw)
         if ph.kernel == "general":
             src = op["gplanes"] if self.general_preplaned else op["codes"]
             return (tile_stats_general, tile_stats_general_plain,
@@ -1499,7 +1632,10 @@ def collect_ld_records(alignment: np.ndarray | SiteMajorCodes,
 
 def _plan_engine(session: LdSession) -> str:
     """The kernels a session's plan runs: ``majmin`` (factorized over the
-    whole plan), ``hybrid`` (factorized, then general) or ``general``."""
+    whole plan), ``hybrid`` (factorized, then general) or ``general``; or
+    ``xla``, the XLA tile engine."""
+    if session.engine == "xla":
+        return "xla"
     tiles = session.phase_tiles
     if tiles["general"] == 0:
         return "majmin"
@@ -1540,8 +1676,11 @@ def run_to_tsv(alignment: np.ndarray | SiteMajorCodes,
     general tile-pair split (``phase_tiles``) and whether the session
     packed (``site_perm``, ``windowed_packed``), beside the fields both
     packages hash (tile, tiles per batch, seq_chunk, threshold, windows,
-    ``cross_split``, shape, ``ndigits`` and the header line).  The JAX
-    session's engine has no counterpart here.
+    ``cross_split``, shape, ``ndigits`` and the header line).  The engine
+    (JAX ``driver.py:1857-1862``) is in the plan's name (``_plan_engine``:
+    ``xla``, or the kernels of the pallas engine), so a resume under the
+    other ``DriverConfig.engine`` is refused, and the refusal names the
+    value to pass.
 
     Under a process group every process drives its shards and receives
     every record, so all return the same count, but only process 0 opens
@@ -1582,7 +1721,7 @@ def run_to_tsv(alignment: np.ndarray | SiteMajorCodes,
         cfg_r.tile, cfg_r.tiles_per_shard_batch, cfg_r.r2_threshold,
         cfg_r.max_site_distance, cfg_r.max_bp_distance, cfg_r.cross_split,
         engine, cfg_r.seq_chunk, cfg_r.weight_quant,
-        session.kernel_kw["wquant"], tiles["majmin"], tiles["general"],
+        session.kernel_kw.get("wquant"), tiles["majmin"], tiles["general"],
         session.site_perm is not None, session.windowed_packed,
         (session.n_seqs, session.n_sites), ndigits, header_line,
         session.n_shards, session.n_procs,
@@ -1621,6 +1760,9 @@ def run_to_tsv(alignment: np.ndarray | SiteMajorCodes,
                 if was else "; delete it to start over")
             refusal = (f"{ckpt_path}: checkpoint belongs to a different run "
                        f"(config or input changed){hint}")
+            if was and (was["engine"] == "xla") != (engine == "xla"):
+                ran = "xla" if was["engine"] == "xla" else "pallas"
+                refusal += f" (it ran DriverConfig(engine={ran!r}))"
         else:
             start_batch = state["next_batch"]
             offset = state["byte_offset"]
