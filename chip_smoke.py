@@ -9,7 +9,9 @@ result line):
 1. build   — print the card's name and power limit, build every
              ``weightedld_tpu_torch/csrc/*.cu`` for sm_90a (one nvcc per
              source, all started together) and, beside them, the native
-             io library from ``native/wldio.cpp`` (g++).
+             io library from ``native/wldio.cpp`` and the native CPU
+             baseline from ``native/weighted_ld_baseline.cpp`` (g++, its
+             command line printed).
 2. kernels — each kernel entry point against its plain PyTorch version on
              the card: the factorized entries on random no-UNKNOWN
              alignments, the general entries (codes and preplaned, weighted
@@ -275,6 +277,17 @@ result line):
              ``torch.set_float32_matmul_precision("high")``, and per
              kernel row the library time and, after the kernels phase,
              kernel / library.
+14. bench  — ``bench_torch.py`` on the card, each mode in a process of its
+             own under a time limit (``BENCH_RUNS``): the default
+             interleaved run, ``--heavy``, ``--sweep``, ``--pod 2`` (two
+             shards sharing the card) and ``--pod 2 --processes 2``, each
+             JSON line printed; the phase fails on a non-zero exit, on
+             records per scan other than the JAX bench's on the same
+             inputs and seeds (floor 0, loaded 10,200, heavy 73,140, in
+             the default run and ``--heavy``), on a spread of other than
+             five rounds, on a device block that does not name the card
+             and its power limit, on an unavailable native baseline, and
+             on a cell whose kernel entry launched no time.
 
 Not in the default run: ``--phases profile`` times the headline
 session's ``stream`` and ``summarize`` scans interleaved, one batch's
@@ -508,6 +521,7 @@ def phase_build() -> None:
     import threading
     import warnings
 
+    import bench_torch
     from weightedld_tpu_torch.io import native
     from weightedld_tpu_torch.ops import _build
 
@@ -521,6 +535,11 @@ def phase_build() -> None:
             warnings.simplefilter("ignore")     # reported by the ingest phase
             native.load()
         t_native["s"] = time.monotonic() - t0
+        try:
+            t_native["baseline"] = bench_torch.build_baseline()
+        except RuntimeError as e:              # the bench phase fails on it
+            t_native["baseline"] = e
+        t_native["baseline_s"] = time.monotonic() - t0
 
     th = threading.Thread(target=build_native)
     th.start()
@@ -529,6 +548,14 @@ def phase_build() -> None:
     log(f"[build] native io library: "
         f"{native.library_path().name if native.available() else 'unavailable'}"
         f" in {t_native['s']:.2f}s (g++, beside nvcc)")
+    built = t_native["baseline"]
+    if isinstance(built, RuntimeError):
+        log(f"[build] native baseline: unavailable: {built}")
+    else:
+        path, cmd = built
+        log(f"[build] native baseline: {path.name} by "
+            f"{' '.join(cmd) if cmd else 'an earlier build'}, done at "
+            f"{t_native['baseline_s']:.2f}s")
     info = _build.build_info
     log(f"[build] {[p.name for p in info.paths]}: compiled "
         f"{info.compiled} in parallel, nvcc {info.seconds:.2f}s, build + "
@@ -5212,9 +5239,127 @@ def phase_xla(tmp: Path, kernel_ms: dict | None = None) -> dict:
     return _library_ms(kernel_ms)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: bench_torch.py on the card
+# ---------------------------------------------------------------------------
+
+# (label, arguments, seconds allowed) of each bench_torch.py run.
+BENCH_RUNS = (("default", [], 600), ("heavy", ["--heavy"], 300),
+              ("sweep", ["--sweep"], 600), ("pod", ["--pod", "2"], 300),
+              ("processes", ["--pod", "2", "--processes", "2"], 600))
+# Records per scan that the JAX bench printed on the same inputs and seeds
+# (BENCH_r05.json: floor 0, loaded 10,200, heavy 73,140).
+BENCH_RECORDS = {"floor": 0, "loaded": 10200, "heavy": 73140}
+
+
+def _bench_run(label: str, args: list[str], timeout: int) -> dict:
+    """Run ``bench_torch.py args`` in its own process group, print its
+    progress lines and its JSON line, and return the JSON; a non-zero
+    exit or a run past ``timeout`` fails the phase, every process of the
+    group stopped."""
+    import signal
+
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", str(REPO / "bench_torch.py"), *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"[bench] {label}: no result in {timeout}s")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    for line in err.splitlines():
+        if line.startswith("["):
+            log(f"[bench] {label}: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"[bench] {label}: bench_torch.py "
+                             f"{' '.join(args)} exited {proc.returncode}: "
+                             f"{err[-3000:]}")
+    line = out.strip().splitlines()[-1]
+    log(line)
+    log(f"[bench] {label}: {time.monotonic() - t0:.1f}s of command")
+    return json.loads(line)
+
+
+def _spreads(block) -> list[dict]:
+    """Every ``{min, median, max, n}`` spread block inside ``block``."""
+    if not isinstance(block, dict):
+        return []
+    if {"min", "median", "max", "n"} <= set(block):
+        return [block]
+    return [s for v in block.values() for s in _spreads(v)]
+
+
+def _hold_bench_device(label: str, payload: dict) -> None:
+    import torch
+
+    dev = payload["device"]
+    if dev["name"] != torch.cuda.get_device_name(0) or not dev["power_limit"]:
+        raise AssertionError(f"[bench] {label}: device block {dev}")
+
+
+def _hold_bench_launches(label: str, sess: dict) -> None:
+    """Every entry the session's plan runs launched on the card."""
+    if not sess["entries"] or any(not sess["launches"].get(name)
+                                  for name in sess["entries"]):
+        raise AssertionError(f"[bench] {label}: entries {sess['entries']} "
+                             f"launched {sess['launches']}")
+
+
+def phase_bench() -> None:
+    """bench_torch.py's five modes on the card, each held to its contract:
+    the JAX bench's record counts, five rounds per spread, the card in the
+    device block, the native baseline built, and each cell's kernel entry
+    launched."""
+    import torch
+
+    torch.cuda.empty_cache()          # the bench processes share the card
+    got = {label: _bench_run(label, args, timeout)
+           for label, args, timeout in BENCH_RUNS}
+    for label, payload in got.items():
+        _hold_bench_device(label, payload)
+    d = got["default"]
+    recs = {cell: d[cell]["records_per_scan"] for cell in BENCH_RECORDS}
+    recs["heavy (--heavy)"] = got["heavy"]["records_per_scan"]
+    want = dict(BENCH_RECORDS, **{"heavy (--heavy)": BENCH_RECORDS["heavy"]})
+    if recs != want:
+        raise AssertionError(f"[bench] records per scan {recs}, the JAX "
+                             f"bench's {want}")
+    spreads = _spreads(d) + _spreads(got["heavy"])
+    if not spreads or any(s["n"] != 5 for s in spreads):
+        raise AssertionError(f"[bench] spread sample counts "
+                             f"{[s['n'] for s in spreads]}")
+    if (d["config"]["baseline"] == "unavailable"
+            or not isinstance(d["vs_baseline"], (int, float))
+            or any(r["native_pairs_per_s"] is None
+                   for r in got["sweep"]["rows"])):
+        raise AssertionError("[bench] the native baseline is unavailable")
+    for cell, sess in d["config"]["sessions"].items():
+        _hold_bench_launches(cell, sess)
+    _hold_bench_launches("heavy (--heavy)", got["heavy"]["config"]["session"])
+    pod = got["pod"]
+    if ([r["shards"] for r in pod["rows"]] != [1, 2]
+            or any(r["balance_efficiency"] < 0.9 for r in pod["rows"])):
+        raise AssertionError(f"[bench] --pod 2 rows {pod['rows']}")
+    procs = got["processes"]
+    if ([r["processes"] for r in procs["rows"]] != [1, 2]
+            or not procs["process_efficiency"] > 0):
+        raise AssertionError(f"[bench] --processes rows {procs['rows']}")
+    log(f"[bench] records per scan {recs} (the JAX bench's); floor "
+        f"{d['value']:,} pairs/s, vs_baseline {d['vs_baseline']} "
+        f"({d['config']['cpu_baseline_threads']} threads of "
+        f"{d['config']['host_cores']} host cores); card {card_line()}")
+
+
 DEFAULT_PHASES = ("build", "kernels", "main", "cpu-vs-card", "analytics",
                   "ambiguous", "ingest", "windows", "flags", "multi", "api",
-                  "transport", "xla")
+                  "transport", "xla", "bench")
 
 
 def main() -> int:
@@ -5222,9 +5367,10 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of build, kernels, main, "
                     "cpu-vs-card, analytics, ambiguous, ingest, windows, "
-                    "flags, multi, api, transport, xla, profile, entries, "
-                    "pace, general, gpace, yardstick and scan (default: the "
-                    "first thirteen, which the result line needs)")
+                    "flags, multi, api, transport, xla, bench, profile, "
+                    "entries, pace, general, gpace, yardstick and scan "
+                    "(default: the first fourteen, which the result line "
+                    "needs)")
     ap.add_argument("--against", default=None, metavar="DIR",
                     help="the scan phase: another checkout to time beside "
                     "this one, e.g. the parent commit unpacked by git "
@@ -5327,6 +5473,10 @@ def main() -> int:
             t0 = time.monotonic()
             phase_xla(tmp, res["ms"] if res else None)
             done("xla", t0)
+        if "bench" in phases:
+            t0 = time.monotonic()
+            phase_bench()
+            done("bench", t0)
         if "profile" in phases:
             phase_profile()
         if "entries" in phases:

@@ -355,10 +355,18 @@ def _resolve_engine(engine: str) -> str:
     return "pallas" if engine == "auto" else engine
 
 
-def resolve_tile(tile: int | None, engine: str = "pallas") -> int:
+def resolve_tile(tile: int | None, engine: str = "pallas",
+                 alignment: np.ndarray | None = None, seq_chunk: int = 512,
+                 planes: tuple | None = None, platform: str | None = None,
+                 majmin: bool = False, n_seqs: int | None = None) -> int:
     """Site-tile side.  Auto: 128 under the XLA engine (the JAX package's
-    value off a TPU, ``driver.py:245``), else 256.  On the H100 the tile
-    only sets the
+    value off a TPU, ``driver.py:245``), else 256.  The signature is JAX's
+    (``driver.py:212-215``), so a JAX call such as ``resolve_tile(None,
+    "auto", aln)`` works; ``alignment``, ``seq_chunk``, ``planes``,
+    ``platform``, ``majmin`` and ``n_seqs`` are accepted and not consulted
+    (the port has one platform, and its tile has no N band: JAX's T = 512
+    band for factorized sessions at 512 < N <= 2,048 was measured on a
+    TPU).  On the H100 the tile only sets the
     granularity of the plan, of the ``[K, T, T]`` batch outputs and of the
     diagonal waste: the factorized kernel's CTA covers a 64 x 32 pair block
     in every weight mode whatever T is (any multiple of 64 keeps every
@@ -366,6 +374,7 @@ def resolve_tile(tile: int | None, engine: str = "pallas") -> int:
     tile wastes half of 2^16 pairs, < 1% of the work for S >= 16k, and the
     plan stays small (18,528 tiles at S = 49,152).  An explicit ``tile``
     always wins."""
+    del alignment, seq_chunk, planes, platform, majmin, n_seqs
     if tile is not None:
         return tile
     return XLA_TILE if _resolve_engine(engine) == "xla" else DEFAULT_TILE
@@ -898,13 +907,16 @@ class LdSession:
 
     @staticmethod
     def required_padding(n_seqs: int, n_sites: int,
-                         cfg: DriverConfig | None = None) -> tuple[int, int]:
+                         cfg: DriverConfig | None = None,
+                         majmin: bool = False) -> tuple[int, int]:
         """``(s_pad, n_pad)`` a :class:`SiteMajorCodes` buffer must have to
         feed a session built with ``cfg``: the constructor's tile and seq
         chunk resolution (``driver.py:889-918``; one tile rule), so a
         streaming reader can allocate the padded buffer before it decodes.
-        Such a buffer feeds the pallas engine only: ``engine="xla"``
-        raises ``ValueError``, as in JAX."""
+        ``majmin`` is accepted and not consulted, as in
+        :func:`resolve_tile` (no N band).  Such a buffer feeds the pallas
+        engine only: ``engine="xla"`` raises ``ValueError``, as in JAX."""
+        del majmin
         cfg = cfg or DriverConfig()
         engine = _resolve_engine(cfg.engine)
         if engine != "pallas":
