@@ -191,8 +191,8 @@ result line):
              sites on the CPU and on the card at the same tiles per batch:
              the same bytes; (f) shard 1's batch of the G = 2 headline
              session against the plain version.  Rank 1 opens no file for
-             writing.  Each rank reports every run's wall, stage spans,
-             launches and record-gather time, printed on their own lines.
+             writing.  Each rank reports every run's wall, stage spans
+             and launches, printed on their own lines.
 11. api    — the public surface (writes its own inputs when run alone,
              ``--phases build,api``): ``import weightedld_tpu_torch as wld``
              resolves every top-level name of the JAX package; on the
@@ -3656,7 +3656,6 @@ for spec in specs:
                                        **cuda_general.launches}.items() if v},
         "shards": [s.n_shards for s in sessions],
         "batches": [s.n_batches for s in sessions],
-        "gather_s": sum(s.gather_s for s in sessions),
         "opened": list(opened)})
 with _open(sys.argv[3], "w") as fh:
     json.dump(reports, fh)
@@ -3720,15 +3719,12 @@ def _multi_ranks(tmp: Path, tag: str, specs: list[dict],
 
 
 def _multi_log(label: str, reps: list[dict]) -> None:
-    """Each rank's wall, stage spans, launches and record-merge time."""
+    """Each rank's wall, stage spans and launches."""
     for pid, r in enumerate(reps):
         spans = " ".join(f"{k} {v:.3f}s" for k, v in r["spans"].items())
-        batches = sum(r["batches"]) or 1
         log(f"[multi] {label}: rank {pid}: rc {r['rc']}, cli wall "
             f"{r['wall']:.3f}s, shards {r['shards']}, batches "
-            f"{r['batches']}, gather {r['gather_s'] * 1e3:.2f} ms "
-            f"({r['gather_s'] * 1e3 / batches:.2f} ms per batch), "
-            f"stages: {spans}, launches {r['launches']}")
+            f"{r['batches']}, stages: {spans}, launches {r['launches']}")
 
 
 def phase_multi(tmp: Path) -> tuple[dict, dict]:

@@ -34,6 +34,7 @@ by (posa, posb) with ``--sort``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import sys
@@ -161,9 +162,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip ingest; load a prepared .npz cache (overrides "
                    "--file)")
     p.add_argument("--profile-dir", type=Path, default=None,
-                   help="write a torch.profiler trace of the scan (Chrome "
-                   "trace JSON; CUDA and CPU activity on the card) to this "
-                   "directory")
+                   help="write a torch.profiler trace of the job, from "
+                   "ingest to the last write (Chrome trace JSON; CUDA and "
+                   "CPU activity on the card, the program's wld.* ranges) "
+                   "to this directory")
     p.add_argument("--chrom", type=str, default=None,
                    help="VCF only: keep records of this chromosome (CHROM "
                    "column) — the reference ignores CHROM, so whole-genome "
@@ -493,28 +495,32 @@ def _prepare_streamed(args, timer):
     from .pipeline import PipelineResult
     from .runtime.driver import DriverConfig
     from .runtime.ingest import prepare_fasta_streamed, prepare_vcf_streamed
+    from .runtime.profiling import annotate, span
 
     stream_cfg = DriverConfig(tile=args.tile, seq_chunk=args.seq_chunk)
     hk_mask = ld_mask = None
     if _is_vcf(args.file):
         chrom, pos_range = _chrom_range(args)
-        with timer.stage("ingest"):
+        with timer.stage("ingest"), span("ingest.read") as sp:
             sm, site_map = prepare_vcf_streamed(
                 args.file, stream_cfg, chrom=chrom, pos_range=pos_range,
                 keep_samples=args.keep_samples,
                 exclude_samples=args.exclude_samples)
     else:
-        with timer.stage("ingest"):
+        with timer.stage("ingest"), span("ingest.read") as sp:
             sm, site_map, hk_mask, ld_mask = prepare_fasta_streamed(
                 args.file, min_acgt=args.min_acgt,
                 min_variability=args.min_variability,
                 max_minor=args.max_minor, cfg=stream_cfg,
                 keep_samples=args.keep_samples,
                 exclude_samples=args.exclude_samples)
+    if sp:
+        sp.set(bytes=Path(args.file).stat().st_size, sites=sm.n_sites)
     with timer.stage("weights"):
         if args.unweighted:
             weights = np.ones(sm.n_seqs, dtype=np.float32)
         else:
+            annotate(path="host_f64", cells=sm.n_seqs * sm.n_sites)
             weights = henikoff_weights_host_site_major(
                 sm.codes, sm.n_sites, sm.n_seqs)
     return PipelineResult(alignment=sm, site_map=site_map, weights=weights,
@@ -575,7 +581,19 @@ def _plink_annot(args, res):
 
 def main(argv=None, timer=None) -> int:
     """CLI entry point; ``timer`` (a ``runtime.profiling.StageTimer``)
-    collects the per-stage spans."""
+    collects the per-stage spans.  The job is the root span ``job``, with
+    its exit code as the attribute ``rc``; ``--profile-dir`` traces it
+    from its first stage to its last write."""
+    from .runtime.profiling import span
+
+    with span("job") as job, contextlib.ExitStack() as scope:
+        rc = _main(argv, timer, scope)
+        if job:
+            job.set(rc=rc)
+        return rc
+
+
+def _main(argv, timer, scope: contextlib.ExitStack) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -654,6 +672,7 @@ def main(argv=None, timer=None) -> int:
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False  # f32 contractions
     timer = timer or StageTimer()
+    scope.enter_context(device_trace(args.profile_dir, device))
     if args.list_chroms:
         # A query answered before any ingest (cli.py:469-485); like the JAX
         # CLI it ignores --region and the sample flags (ROADMAP queue 3).
@@ -906,11 +925,6 @@ def main(argv=None, timer=None) -> int:
             _json_line(out, t0)
         return 0
 
-    trace_dir = args.profile_dir
-
-    def traced():
-        return device_trace(trace_dir, device)
-
     if args.ld_decay is not None:
         if args.r2_threshold is not None:
             print("warning: --ld-decay is threshold-free; --r2-threshold "
@@ -927,7 +941,7 @@ def main(argv=None, timer=None) -> int:
             return 2
         sess = session()
         try:
-            with traced(), timer.stage("scan"):
+            with timer.stage("scan"):
                 out = sess.ld_decay(edges)
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
@@ -943,7 +957,7 @@ def main(argv=None, timer=None) -> int:
             print(f"error: --r2-hist: {e}", file=sys.stderr)
             return 2
         sess = session()
-        with traced(), timer.stage("scan"):
+        with timer.stage("scan"):
             out = sess.r2_histogram(edges)
         if emit:
             _json_line(out, t0)
@@ -968,7 +982,7 @@ def main(argv=None, timer=None) -> int:
             return 2
         sess = session()
         try:
-            with traced(), timer.stage("scan"):
+            with timer.stage("scan"):
                 kept = sess.prune(args.prune_r2, rule=args.prune_rule,
                                   on_progress=on_progress)
         except ValueError as e:
@@ -995,14 +1009,13 @@ def main(argv=None, timer=None) -> int:
             print("warning: --top is threshold-free; --r2-threshold is "
                   "ignored in this mode", file=sys.stderr)
         if engine in ("dense", "reference"):
-            with traced():
-                st = dense_stats()
+            st = dense_stats()
             rec = extract_records(st, res.site_map)
             order = np.argsort(-np.asarray(rec.r2), kind="stable")[:args.top]
             rec = LdRecords(*(np.asarray(f)[order] for f in rec))
         else:
             sess = session()
-            with traced(), timer.stage("scan"):
+            with timer.stage("scan"):
                 rec = sess.top_pairs(args.top)
         if not emit:
             return 0
@@ -1027,7 +1040,7 @@ def main(argv=None, timer=None) -> int:
             with pair_out() as fh:
                 write_pairs(records, fh, ndigits=args.ndigits, annot=annot)
     elif engine == "dense":
-        with traced(), timer.stage("scan"):
+        with timer.stage("scan"):
             records = extract_records(dense_stats(), res.site_map,
                                       args.r2_threshold)
         if emit:
@@ -1036,7 +1049,7 @@ def main(argv=None, timer=None) -> int:
         log.info("wrote %d pairs in %.2fs", len(records),
                  time.monotonic() - t0)
     elif args.sort:
-        with traced(), timer.stage("scan"):
+        with timer.stage("scan"):
             rec = collect_ld_records(res.alignment, res.weights,
                                      res.site_map, dcfg, devices=devices)
         if emit:
@@ -1051,14 +1064,13 @@ def main(argv=None, timer=None) -> int:
         # A checkpoint needs a real output file; on standard output
         # --checkpoint is ignored, as in the JAX CLI (ROADMAP queue 3,
         # ADVICE cli.py:401).
-        with traced():
-            nrec = run_to_tsv(
-                res.alignment, res.weights, res.site_map,
-                args.pair_output if args.pair_output else "-", dcfg,
-                devices=devices,
-                checkpoint=args.checkpoint and args.pair_output is not None,
-                ndigits=args.ndigits, on_progress=on_progress, timer=timer,
-                annot=annot)
+        nrec = run_to_tsv(
+            res.alignment, res.weights, res.site_map,
+            args.pair_output if args.pair_output else "-", dcfg,
+            devices=devices,
+            checkpoint=args.checkpoint and args.pair_output is not None,
+            ndigits=args.ndigits, on_progress=on_progress, timer=timer,
+            annot=annot)
         log.info("wrote %d pairs in %.2fs", nrec, time.monotonic() - t0)
     if args.verbose and emit:
         log.info("stage report:\n%s", timer.report())

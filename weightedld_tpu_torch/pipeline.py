@@ -46,6 +46,7 @@ from .core.sites import compute_variable_sites_host
 from .device import resolve_device
 from .io.fasta import read_fasta, read_fasta_with_names
 from .io.vcf import read_vcf
+from .runtime.profiling import annotate, span
 
 # Above this many cells the weights are computed on the device in site
 # chunks (the host float64 path would hold several [N, S] f64 temporaries).
@@ -55,6 +56,12 @@ _LARGE_CELLS = 200_000_000
 def _weights_for(alignment: np.ndarray,
                  device: str | torch.device | None = None,
                  variant: str = "python") -> np.ndarray:
+    """The weights of ``alignment``; the path taken, ``host_f64`` or
+    ``card_f32`` (the pipeline's device), and the cells are attributes of
+    the span open around the call (the ``weights`` stage)."""
+    on_host = alignment.size <= _LARGE_CELLS and variant != "paper"
+    annotate(path="host_f64" if on_host else "card_f32",
+             cells=int(alignment.size))
     if alignment.size > _LARGE_CELLS:
         return henikoff_weights_large(alignment, device=device,
                                       variant=variant).cpu().numpy()
@@ -208,8 +215,11 @@ def prepare_fasta(path: str | Path, cfg: WldConfig, timer=None,
     if cfg.region is not None:
         raise ValueError("region only applies to VCF input (FASTA has no "
                          "chromosome/position columns)")
-    with timer.stage("ingest"):
+    with timer.stage("ingest"), span("ingest.read") as sp:
         alignment = _read_fasta_subset(path, cfg)
+        if sp:
+            sp.set(bytes=Path(path).stat().st_size,
+                   sites=alignment.shape[1])
     with timer.stage("mask"):
         hk_mask, ld_mask = compute_variable_sites_host(
             alignment, cfg.min_acgt, cfg.min_variability, cfg.max_minor)
@@ -234,8 +244,14 @@ def prepare_vcf(path: str | Path, cfg: WldConfig, timer=None,
     timer = timer or StageTimer()
     chrom, pos_range = _resolve_vcf_filters(cfg)
     with timer.stage("ingest"):
-        alignment, site_map = read_vcf(path, chrom=chrom, pos_range=pos_range)
-        alignment = _subset_vcf_rows(path, alignment, cfg)
+        with span("ingest.read") as sp:
+            alignment, site_map = read_vcf(path, chrom=chrom,
+                                           pos_range=pos_range)
+            if sp:
+                sp.set(bytes=Path(path).stat().st_size,
+                   sites=alignment.shape[1])
+        with span("ingest.subset"):
+            alignment = _subset_vcf_rows(path, alignment, cfg)
     with timer.stage("weights"):
         if cfg.unweighted:
             weights = np.ones(alignment.shape[0], dtype=np.float32)

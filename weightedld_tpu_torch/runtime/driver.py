@@ -98,6 +98,15 @@ shard this is plan order; over several it depends on k as well, whose
 auto value differs between the CPU and the card (as the JAX package's
 does between the CPU and a TPU), so two runs over G > 1 shards write the
 same bytes at the same k.
+
+Spans (:func:`runtime.profiling.span`, recorded while a profiler records
+the process): ``upload.scan``, ``.pack``, ``.plan``, ``.copy``,
+``.weights``, ``.planes`` and ``.sync`` in the constructor;
+``batch.kernel`` and ``batch.reduce`` (with device times),
+``batch.wait``, ``batch.read`` (one per shard slice, with its compaction
+path) and ``batch.gather`` in the batch loops; ``prune.sweep``; and a
+``query.<method>`` span around each public query method (``prune``'s
+scan is a ``query.stream`` inside its ``query.prune``).
 """
 
 from __future__ import annotations
@@ -167,6 +176,7 @@ from ..parallel.sharded import (
     replicate,
 )
 from ..parallel.triangle import cdiv, plan_tiles, plan_tiles_permuted, stripe
+from .profiling import span, spanned
 
 log = logging.getLogger("weightedld_tpu_torch")
 
@@ -584,7 +594,6 @@ class LdSession:
         self.n_local = len(self.devices)
         self.n_procs = process_count()
         self.n_shards = global_shard_count(self.n_local)
-        self.gather_s = 0.0   # seconds spent merging shards' records
         self.engine = _resolve_engine(cfg.engine)
         sm = alignment if isinstance(alignment, SiteMajorCodes) else None
         if sm is not None and self.engine != "pallas":
@@ -638,14 +647,15 @@ class LdSession:
         majmin = False
         site_counts = None
         if self.engine == "pallas":
-            self.planes, has_unknown = detect_planes_unknown(valid)
-            if cfg.kernel == "auto":
-                if not has_unknown:
-                    majmin = True
-                else:
-                    site_counts = self._host_counts()
-                    majmin = majmin_safe_with_unknown(None, site_counts,
-                                                      n_seqs=self.n_seqs)
+            with span("upload.scan", cells=self.n_seqs * self.n_sites):
+                self.planes, has_unknown = detect_planes_unknown(valid)
+                if cfg.kernel == "auto":
+                    if not has_unknown:
+                        majmin = True
+                    else:
+                        site_counts = self._host_counts()
+                        majmin = majmin_safe_with_unknown(
+                            None, site_counts, n_seqs=self.n_seqs)
         del valid
         if cfg.cross_split is not None:
             if not 0 < cfg.cross_split < self.n_sites:
@@ -670,8 +680,9 @@ class LdSession:
         self._sm_orig_nondecr = None
         if (not majmin and site_counts is not None
                 and cfg.cross_split is None):
-            perm = packing_permutation(site_counts, self.n_seqs, cfg,
-                                       site_map)
+            with span("upload.pack"):
+                perm = packing_permutation(site_counts, self.n_seqs, cfg,
+                                           site_map)
             if perm is not None:
                 self._sm_orig_nondecr = not bool((np.diff(site_map) < 0)
                                                  .any())
@@ -692,27 +703,52 @@ class LdSession:
             # The site map is validated before any plan or upload work; its
             # device copy serves the bp mask and ld_decay.
             self._site_map_dev("--max-distance-bp")
-        if self.windowed_packed:
-            self.plan = plan_tiles_permuted(
-                self.n_sites, tile, cfg.max_site_distance,
-                max_bp_distance=cfg.max_bp_distance,
-                orig_idx=self.site_perm, site_map=site_map)
-        else:
-            self.plan = plan_tiles(self.n_sites, tile, cfg.max_site_distance,
-                                   max_bp_distance=cfg.max_bp_distance,
-                                   site_map=site_map,
-                                   cross_split=cfg.cross_split)
-        if self.engine == "xla":
-            k = resolve_xla_tiles_per_batch(
-                cfg.tiles_per_shard_batch, self.plan.n_tiles, tile,
-                self.n_seqs, cfg.r2_threshold, self.device, self.n_shards)
-        else:
-            k = resolve_tiles_per_batch(cfg.tiles_per_shard_batch,
-                                        self.plan.n_tiles, tile,
-                                        cfg.r2_threshold, self.device,
-                                        self.n_shards)
-        cfg = replace(cfg, tiles_per_shard_batch=k)
-        self.cfg = cfg
+        with span("upload.plan"):
+            if self.windowed_packed:
+                self.plan = plan_tiles_permuted(
+                    self.n_sites, tile, cfg.max_site_distance,
+                    max_bp_distance=cfg.max_bp_distance,
+                    orig_idx=self.site_perm, site_map=site_map)
+            else:
+                self.plan = plan_tiles(
+                    self.n_sites, tile, cfg.max_site_distance,
+                    max_bp_distance=cfg.max_bp_distance, site_map=site_map,
+                    cross_split=cfg.cross_split)
+            if self.engine == "xla":
+                k = resolve_xla_tiles_per_batch(
+                    cfg.tiles_per_shard_batch, self.plan.n_tiles, tile,
+                    self.n_seqs, cfg.r2_threshold, self.device, self.n_shards)
+            else:
+                k = resolve_tiles_per_batch(cfg.tiles_per_shard_batch,
+                                            self.plan.n_tiles, tile,
+                                            cfg.r2_threshold, self.device,
+                                            self.n_shards)
+            cfg = replace(cfg, tiles_per_shard_batch=k)
+            self.cfg = cfg
+            # The hybrid split: a tile pair is factorized-exact when each
+            # side's margins absorb the other side's UNKNOWN counts
+            # (majmin_tile_margins); clean x clean tile pairs always are.
+            self.hybrid_safe = None
+            if not majmin and site_counts is not None:
+                stab, umax = majmin_tile_margins(site_counts, self.n_seqs,
+                                                 tile, self.plan.grid)
+                pti, ptj = self.plan.tile_i, self.plan.tile_j
+                safe = (((umax[ptj] == 0) | (stab[pti] > umax[ptj]))
+                        & ((umax[pti] == 0) | (stab[ptj] > umax[pti])))
+                if safe.all():
+                    majmin = True  # weaker than the global test, still exact
+                elif safe.any():
+                    self.hybrid_safe = safe
+            if self.engine == "xla":
+                parts = [("xla", np.ones(self.plan.n_tiles, bool))]
+            elif majmin:
+                parts = [("majmin", np.ones(self.plan.n_tiles, bool))]
+            elif self.hybrid_safe is not None:
+                parts = [("majmin", self.hybrid_safe),
+                         ("general", ~self.hybrid_safe)]
+            else:
+                parts = [("general", np.ones(self.plan.n_tiles, bool))]
+            kernels = {kern for kern, _sel in parts}
         # The permuted site-index window reads each pair's original indices
         # (driver.py:755-761); padding sites are dropped by keep anyway.
         self._orig_dev = None
@@ -721,119 +757,109 @@ class LdSession:
             orig[:self.n_sites] = self.site_perm
             self._orig_dev = torch.from_numpy(orig).to(self.device)
 
-        # The hybrid split: a tile pair is factorized-exact when each side's
-        # margins absorb the other side's UNKNOWN counts
-        # (majmin_tile_margins); clean x clean tile pairs always are.
-        self.hybrid_safe = None
-        if not majmin and site_counts is not None:
-            stab, umax = majmin_tile_margins(site_counts, self.n_seqs, tile,
-                                             self.plan.grid)
-            pti, ptj = self.plan.tile_i, self.plan.tile_j
-            safe = (((umax[ptj] == 0) | (stab[pti] > umax[ptj]))
-                    & ((umax[pti] == 0) | (stab[ptj] > umax[pti])))
-            if safe.all():
-                majmin = True  # weaker than the global test, still exact
-            elif safe.any():
-                self.hybrid_safe = safe
-        if self.engine == "xla":
-            parts = [("xla", np.ones(self.plan.n_tiles, bool))]
-        elif majmin:
-            parts = [("majmin", np.ones(self.plan.n_tiles, bool))]
-        elif self.hybrid_safe is not None:
-            parts = [("majmin", self.hybrid_safe),
-                     ("general", ~self.hybrid_safe)]
-        else:
-            parts = [("general", np.ones(self.plan.n_tiles, bool))]
-        kernels = {kern for kern, _sel in parts}
-
         if self.engine == "xla":
             self._upload_xla(alignment, weights)
         else:
             n_pad = cdiv(self.n_seqs, seq_chunk) * seq_chunk
             s_pad = self.plan.s_pad
             dev = self.device
-            if sm is not None:
-                codes_host = np.ascontiguousarray(sm.codes)  # no second transpose
-            else:
-                codes_host = pad_alignment_site_major(alignment, tile, seq_chunk)
-            codes_dev = torch.from_numpy(codes_host).to(dev)
+            with span("upload.pack"):
+                if sm is not None:   # no second transpose
+                    codes_host = np.ascontiguousarray(sm.codes)
+                else:
+                    codes_host = pad_alignment_site_major(alignment, tile,
+                                                          seq_chunk)
+            with span("upload.copy", bytes=codes_host.nbytes):
+                codes_dev = torch.from_numpy(codes_host).to(dev)
             del codes_host
             if self.site_perm is not None:
-                rows = np.concatenate([self.site_perm,
-                                       np.arange(self.n_sites, s_pad)])
-                codes_dev = codes_dev.index_select(0, torch.from_numpy(rows).to(dev))
+                with span("upload.planes"):
+                    rows = np.concatenate([self.site_perm,
+                                           np.arange(self.n_sites, s_pad)])
+                    codes_dev = codes_dev.index_select(
+                        0, torch.from_numpy(rows).to(dev))
             if weights is None:
-                weights = henikoff_weights_site_major(
-                    codes_dev, self.n_seqs)[:self.n_seqs].cpu().numpy()
-
-            w_arr = np.asarray(weights, dtype=np.float32)
-            exact = weights_bf16_exact(w_arr)
-            unit = bool((w_arr == 1.0).all())
-            if exact or unit:
-                wquant = ""
-            elif cfg.weight_quant == "none":
-                wquant = "int8x3"
-            elif cfg.weight_quant == "split_bf16":
-                wquant = ""
-            else:
-                wquant = cfg.weight_quant
-            nlev = {"int8": 2, "int8x3": 3}.get(wquant, 0)
+                with span("upload.weights"):
+                    weights = henikoff_weights_site_major(
+                        codes_dev, self.n_seqs)[:self.n_seqs].cpu().numpy()
+            with span("upload.pack"):
+                w_arr = np.asarray(weights, dtype=np.float32)
+                exact = weights_bf16_exact(w_arr)
+                unit = bool((w_arr == 1.0).all())
+                if exact or unit:
+                    wquant = ""
+                elif cfg.weight_quant == "none":
+                    wquant = "int8x3"
+                elif cfg.weight_quant == "split_bf16":
+                    wquant = ""
+                else:
+                    wquant = cfg.weight_quant
+                nlev = {"int8": 2, "int8x3": 3}.get(wquant, 0)
+                if nlev:
+                    weights_host = pad_weights_int8(w_arr, seq_chunk,
+                                                    levels=nlev)
+                elif wquant == "lo_int8":
+                    weights_host = pad_weights_lo_int8(w_arr, seq_chunk)
+                else:
+                    weights_host = pad_weights(w_arr, seq_chunk)
             # Preplaned factorized planes: the JAX session never preplanes a
-            # hybrid phase 0 (driver.py:709), but both factorized entries give
-            # the same bits, so phase 0 takes the planes whenever they fit, as
-            # a pure factorized session does.  The general kernel's one-hot
-            # planes only under "on": JAX never selects them (measured neutral
-            # on the TPU, pallas_ld.py:40-41), and the codes are read anyway.
+            # hybrid phase 0 (driver.py:709), but both factorized entries
+            # give the same bits, so phase 0 takes the planes whenever they
+            # fit, as a pure factorized session does.  The general kernel's
+            # one-hot planes only under "on": JAX never selects them
+            # (measured neutral on the TPU, pallas_ld.py:40-41), and the
+            # codes are read anyway.
             mm_bytes = (1 + nlev) * 2 * s_pad * n_pad
             self._preplaned = "majmin" in kernels and (
                 cfg.preplaned == "on" or (
                     cfg.preplaned == "auto" and auto_preplaned(
                         seq_chunk, mm_bytes, plane_budget(self.device))))
-            self.general_preplaned = "general" in kernels and cfg.preplaned == "on"
-            # Keyword arguments of every factorized kernel call of this session;
-            # the general kernel adds its planes.
+            self.general_preplaned = ("general" in kernels
+                                      and cfg.preplaned == "on")
+            # Keyword arguments of every factorized kernel call of this
+            # session; the general kernel adds its planes.
             self.kernel_kw = dict(tile=tile, n_sites=self.n_sites,
                                   seq_chunk=seq_chunk, exact_weights=exact,
                                   unit_weights=unit, wquant=wquant)
             self.general_kw = dict(self.kernel_kw, planes=self.planes,
                                    preplaned=self.general_preplaned)
-
-            if nlev:
-                weights_host = pad_weights_int8(w_arr, seq_chunk, levels=nlev)
-            elif wquant == "lo_int8":
-                weights_host = pad_weights_lo_int8(w_arr, seq_chunk)
-            else:
-                weights_host = pad_weights(w_arr, seq_chunk)
             self.weights = w_arr
-            self.weights_dev = torch.from_numpy(weights_host).to(dev)
+            with span("upload.copy", bytes=weights_host.nbytes):
+                self.weights_dev = torch.from_numpy(weights_host).to(dev)
             self.auxc_dev = None
             if "majmin" in kernels:
-                if site_counts is None:   # no packing: the input's site order
-                    site_counts = self._host_counts()
-                auxc, _auxr = majmin_site_aux(None, s_pad, counts=site_counts)
-                self.auxc_dev = torch.from_numpy(auxc).to(dev)
+                with span("upload.scan"):
+                    if site_counts is None:   # no packing: the input's order
+                        site_counts = self._host_counts()
+                    auxc, _auxr = majmin_site_aux(None, s_pad,
+                                                  counts=site_counts)
+                with span("upload.copy", bytes=auxc.nbytes):
+                    self.auxc_dev = torch.from_numpy(auxc).to(dev)
             self.planes_dev = self.xq_dev = self.gplanes_dev = None
-            if self._preplaned:
-                self.planes_dev = build_majmin_planes(codes_dev, self.auxc_dev,
-                                                      tile=tile)
-                if nlev:
-                    self.xq_dev = build_majmin_xq(self.planes_dev,
-                                                  self.weights_dev, nlev)
-            if self.general_preplaned:
-                self.gplanes_dev = build_planes_tiled(codes_dev, tile=tile,
-                                                      planes=self.planes)
+            with span("upload.planes"):
+                if self._preplaned:
+                    self.planes_dev = build_majmin_planes(
+                        codes_dev, self.auxc_dev, tile=tile)
+                    if nlev:
+                        self.xq_dev = build_majmin_xq(self.planes_dev,
+                                                      self.weights_dev, nlev)
+                if self.general_preplaned:
+                    self.gplanes_dev = build_planes_tiled(
+                        codes_dev, tile=tile, planes=self.planes)
             needs_codes = (("majmin" in kernels and not self._preplaned)
                            or ("general" in kernels
                                and not self.general_preplaned))
             self.codes_dev = codes_dev if needs_codes else None
             del codes_dev
             # Every operand a batch reads, once per distinct shard device.
-            self._ops = [dict(zip(("codes", "weights", "auxc", "planes", "xq",
-                                   "gplanes", "orig"), ops))
-                         for ops in replicate(
-                             self.devices, self.codes_dev, self.weights_dev,
-                             self.auxc_dev, self.planes_dev, self.xq_dev,
-                             self.gplanes_dev, self._orig_dev)]
+            with span("upload.copy"):
+                self._ops = [dict(zip(("codes", "weights", "auxc", "planes",
+                                       "xq", "gplanes", "orig"), ops))
+                             for ops in replicate(
+                                 self.devices, self.codes_dev,
+                                 self.weights_dev, self.auxc_dev,
+                                 self.planes_dev, self.xq_dev,
+                                 self.gplanes_dev, self._orig_dev)]
 
         # Each phase's tile pairs striped over the G shards on its own
         # (driver.py:852-877), each shard's share padded to whole batches
@@ -846,23 +872,27 @@ class LdSession:
         first = process_index() * self.n_local
         self._phases = []
         for kern, sel in parts:
-            sub = replace(self.plan, tile_i=self.plan.tile_i[sel],
-                          tile_j=self.plan.tile_j[sel])
-            ti_s, tj_s, em_s = stripe(sub, g)
-            per = len(ti_s) // g
-            k_p = k if len(parts) == 1 or kern == "majmin" \
-                else max(1, min(k, per))
-            nb = cdiv(per, k_p)
-            ti = np.zeros((g, nb * k_p), np.int32)
-            tj = np.zeros((g, nb * k_p), np.int32)
-            em = np.zeros((g, nb * k_p), np.int32)
-            ti[:, :per] = ti_s.reshape(g, per)
-            tj[:, :per] = tj_s.reshape(g, per)
-            em[:, :per] = em_s.reshape(g, per)
-            local = [(torch.from_numpy(ti[first + s]).to(d),
-                      torch.from_numpy(tj[first + s]).to(d),
-                      torch.from_numpy(em[first + s]).to(d))
-                     for s, d in enumerate(self.devices)]
+            with span("upload.plan") as sp:
+                sub = replace(self.plan, tile_i=self.plan.tile_i[sel],
+                              tile_j=self.plan.tile_j[sel])
+                ti_s, tj_s, em_s = stripe(sub, g)
+                per = len(ti_s) // g
+                k_p = k if len(parts) == 1 or kern == "majmin" \
+                    else max(1, min(k, per))
+                nb = cdiv(per, k_p)
+                ti = np.zeros((g, nb * k_p), np.int32)
+                tj = np.zeros((g, nb * k_p), np.int32)
+                em = np.zeros((g, nb * k_p), np.int32)
+                ti[:, :per] = ti_s.reshape(g, per)
+                tj[:, :per] = tj_s.reshape(g, per)
+                em[:, :per] = em_s.reshape(g, per)
+                if sp:
+                    sp.set(tile_pairs=sub.n_tiles, batches=nb)
+            with span("upload.copy", bytes=3 * ti[0].nbytes * self.n_local):
+                local = [(torch.from_numpy(ti[first + s]).to(d),
+                          torch.from_numpy(tj[first + s]).to(d),
+                          torch.from_numpy(em[first + s]).to(d))
+                         for s, d in enumerate(self.devices)]
             self._phases.append(_Phase(
                 kernel=kern, n_tiles=sub.n_tiles, k=k_p, n_batches=nb,
                 tile_i_host=ti, tile_j_host=tj, emit_host=em,
@@ -878,9 +908,10 @@ class LdSession:
         self._spec_cap = 0
         # Local shard slices read by each compaction path, every scan's.
         self.path_counts = {"speculative": 0, "exact": 0}
-        for d in {str(d): d for d in self.devices}.values():
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)  # set-up time ends with its work
+        with span("upload.sync"):
+            for d in {str(d): d for d in self.devices}.values():
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)  # set-up ends with its work
 
     def _upload_xla(self, alignment: np.ndarray, weights) -> None:
         """The XLA engine's operands (``driver.py:785-806``): the
@@ -1012,7 +1043,11 @@ class LdSession:
         into ``keep``."""
         ti, tj, em = self.batch_tiles(b, shard)
         fn, _plain, args, kw = self.batch_kernel(b, shard)
-        st = fn(*args, ti, tj, em, **kw)
+        with span("batch.kernel", device=self.devices[shard]) as sp:
+            st = fn(*args, ti, tj, em, **kw)
+        if sp:
+            tiles = int(self.batch_tiles_host(b, shard)[2].sum())
+            sp.set(tile_pairs=tiles, pairs=tiles * self.cfg.tile ** 2)
         self._mask_pairs(st.keep, ti, tj, shard)
         return st, ti, tj
 
@@ -1022,8 +1057,12 @@ class LdSession:
         and the device ops of its reduction are launched before the caller
         reads any result back (:func:`_to_host`), so slices on different
         cards run at once.  ``reduce`` must not read the device."""
-        return [reduce(*self._dispatch(b, sh), sh)
-                for sh in range(self.n_local)]
+        out = []
+        for sh in range(self.n_local):
+            st, ti, tj = self._dispatch(b, sh)
+            with span("batch.reduce", device=self.devices[sh]):
+                out.append(reduce(st, ti, tj, sh))
+        return out
 
     def _pipelined(self, launch, start: int = 0) -> Iterator[tuple]:
         """``(b, launch(b))`` for every batch from ``start``, each yielded
@@ -1046,8 +1085,8 @@ class LdSession:
         :meth:`_launch_shards`) as host arrays in shard order, read one
         batch behind compute (``_pipelined_reduce``, ``driver.py:1290-
         1310``): each result's copy to the host starts at launch."""
-        for _b, copies in self._pipelined(lambda b: [
-                _start_copy(x) for x in self._launch_shards(b, reduce)]):
+        for _b, copies in self._pipelined(lambda b: self._launch_shards(
+                b, lambda *a: _start_copy(reduce(*a)))):
             yield [_to_host(c)[0] for c in copies]
 
     def _mask_pairs(self, keep: torch.Tensor, ti: torch.Tensor,
@@ -1059,36 +1098,40 @@ class LdSession:
         when windowed-packed) and the rectangle ``gi < split <= gj``.  Each
         is a broadcast comparison of ``[K, T]`` vectors that yields the
         ``[K, T, T]`` bool directly, with no integer ``[K, T, T]``
-        intermediate."""
+        intermediate.  The masks' device work is a ``batch.reduce`` span of
+        its own, beside the one of :meth:`_launch_shards`."""
         cfg = self.cfg
         if (cfg.max_site_distance is None and cfg.max_bp_distance is None
                 and cfg.cross_split is None):
             return
-        t = cfg.tile
-        li = torch.arange(t, device=keep.device, dtype=torch.int64)
-        gi = ti.to(torch.int64)[:, None] * t + li          # [K, T] rows
-        gj = tj.to(torch.int64)[:, None] * t + li          # [K, T] cols
-        both = self.windowed_packed
-        if cfg.max_site_distance is not None:
-            orig = self._ops[shard]["orig"]
-            if orig is not None:
-                a, b = orig[gi], orig[gj]
-            else:
-                a, b = gi, gj
-            _fold_within(keep, a, b, cfg.max_site_distance, both)
-        if cfg.max_bp_distance is not None:
-            sm = self._sm_reps[shard]
-            _fold_within(keep, sm[gi].to(torch.int64),
-                         sm[gj].to(torch.int64), cfg.max_bp_distance, both)
-        if cfg.cross_split is not None:
-            split = cfg.cross_split
-            keep &= (gi < split)[:, :, None] & (gj >= split)[:, None, :]
+        with span("batch.reduce", device=keep.device):
+            t = cfg.tile
+            li = torch.arange(t, device=keep.device, dtype=torch.int64)
+            gi = ti.to(torch.int64)[:, None] * t + li          # [K, T] rows
+            gj = tj.to(torch.int64)[:, None] * t + li          # [K, T] cols
+            both = self.windowed_packed
+            if cfg.max_site_distance is not None:
+                orig = self._ops[shard]["orig"]
+                if orig is not None:
+                    a, b = orig[gi], orig[gj]
+                else:
+                    a, b = gi, gj
+                _fold_within(keep, a, b, cfg.max_site_distance, both)
+            if cfg.max_bp_distance is not None:
+                sm = self._sm_reps[shard]
+                _fold_within(keep, sm[gi].to(torch.int64),
+                             sm[gj].to(torch.int64), cfg.max_bp_distance,
+                             both)
+            if cfg.cross_split is not None:
+                split = cfg.cross_split
+                keep &= (gi < split)[:, :, None] & (gj >= split)[:, None, :]
 
     def _threshold(self, r2_threshold) -> float:
         thr = self.cfg.r2_threshold if r2_threshold is _UNSET \
             else r2_threshold
         return -np.inf if thr is None else float(thr)
 
+    @spanned("query.summarize")
     def summarize(self, r2_threshold=_UNSET) -> dict:
         """Whole-triangle reduction: surviving pair count, count over the
         threshold, and r2 sum over threshold / max, with no records
@@ -1143,6 +1186,7 @@ class LdSession:
         ph, lb = self._locate(b)
         return int(ph.emit_host[:, lb * ph.k:(lb + 1) * ph.k].sum())
 
+    @spanned("query.stream")
     def stream(self, start_batch: int = 0, r2_threshold=_UNSET,
                on_progress: Callable[[Progress], None] | None = None,
                decimals: int | None = None,
@@ -1155,8 +1199,7 @@ class LdSession:
         (``driver.py:1680-1700``): the pairs of this scan's emitted tiles,
         every shard's and both phases of a hybrid plan, against the whole
         plan's.  Each batch's records are every shard's, in global shard
-        order on every process (:func:`parallel.sharded.gather_records`;
-        ``gather_s`` adds up the seconds of those merges).
+        order on every process (:func:`parallel.sharded.gather_records`).
 
         ``decimals=None`` yields exact float32 values.  ``decimals`` in
         0..4 (the caller writes ``decimals``-digit text, as ``run_to_tsv``
@@ -1273,29 +1316,37 @@ class LdSession:
         t = self.cfg.tile
         local, counts = [], []
         for sh, (st, ti, tj, mask, cap, copy) in enumerate(launched):
-            n = None
-            if copy is not None:
-                count, block = _to_host(copy)
-                n = int(count)
-            if n is not None and n <= cap:
-                self.path_counts["speculative"] += 1
-                sites, vals = decode_block(block[:n])
-            else:
-                self.path_counts["exact"] += 1
-                n, sites, vals = compact_tile_stats(st, ti, tj, mask, tile=t,
-                                                    scale=scale)
-                sites, vals = sites.cpu().numpy(), vals.cpu().numpy()
+            with span("batch.read", capacity=cap) as sp:
+                n = None
+                if copy is not None:
+                    count, block = _to_host(copy)
+                    n = int(count)
+                if n is not None and n <= cap:
+                    self.path_counts["speculative"] += 1
+                    if sp:
+                        sp.set(path="speculative")
+                    sites, vals = decode_block(block[:n])
+                else:
+                    self.path_counts["exact"] += 1
+                    if sp:
+                        sp.set(path="exact")
+                    n, sites, vals = compact_tile_stats(
+                        st, ti, tj, mask, tile=t, scale=scale)
+                    sites, vals = sites.cpu().numpy(), vals.cpu().numpy()
+                if sp:
+                    sp.set(records=int(n))
             counts.append(n)
             local.append((sites, vals))
         self._learn(b, counts)
-        tg = time.perf_counter()
-        sites_h, vals_h = gather_records(local)
-        self.gather_s += time.perf_counter() - tg
-        sites_h = self._fold(sites_h)
-        return LdRecords(
-            pos_a=self.site_map[sites_h[:, 0]],
-            pos_b=self.site_map[sites_h[:, 1]],
-            d=vals_h[:, 0], d_prime=vals_h[:, 1], r2=vals_h[:, 2])
+        with span("batch.gather") as sp:
+            sites_h, vals_h = gather_records(local)
+            sites_h = self._fold(sites_h)
+            if sp:
+                sp.set(records=len(sites_h))
+            return LdRecords(
+                pos_a=self.site_map[sites_h[:, 0]],
+                pos_b=self.site_map[sites_h[:, 1]],
+                d=vals_h[:, 0], d_prime=vals_h[:, 1], r2=vals_h[:, 2])
 
     def run_batch(self, b: int) -> LdRecords:
         """Batch ``b``'s records over the session's threshold, every
@@ -1346,6 +1397,7 @@ class LdSession:
         self._sm_reps = [t for (t,) in replicate(self.devices, self._sm_dev)]
         return self._sm_dev
 
+    @spanned("query.ld_decay")
     def ld_decay(self, edges) -> dict:
         """LD-decay curve (``driver.py:1344-1389``): per distance bin
         ``edges[b] <= dist < edges[b+1]`` in ``site_map`` units (bp for a
@@ -1378,6 +1430,7 @@ class LdSession:
             "n_d_prime_finite": dp_counts.tolist(),
         }
 
+    @spanned("query.r2_histogram")
     def r2_histogram(self, edges) -> dict:
         """Histogram of r2 over all surviving pairs, bin ``edges[b] <= r2 <
         edges[b+1]`` (``driver.py:1391-1405``); the session's r2 threshold
@@ -1393,6 +1446,7 @@ class LdSession:
         counts = merge_sums(gather_shards(acc))
         return {"edges": list(edges), "n_pairs": counts.tolist()}
 
+    @spanned("query.top_pairs")
     def top_pairs(self, k: int) -> LdRecords:
         """The ``k`` strongest surviving pairs by r2, descending, over the
         whole triangle (``driver.py:1488-1527``): each shard's slice of a
@@ -1436,6 +1490,7 @@ class LdSession:
             self._host = None
         return self._maf_cache
 
+    @spanned("query.prune")
     def prune(self, r2_threshold: float, rule: str = "maf",
               on_progress: Callable[[Progress], None] | None = None,
               ) -> np.ndarray:
@@ -1456,27 +1511,32 @@ class LdSession:
         if len(pos_to_idx) != self.n_sites:
             raise ValueError("prune needs unique site_map positions "
                              "(multi-chromosome input? run per chromosome)")
-        maf = self._maf() if rule == "maf" else None
         pa_parts, pb_parts = [], []
         for _b, rec in self.stream(r2_threshold=float(r2_threshold),
                                    on_progress=on_progress):
             pa_parts.append(np.asarray(rec.pos_a))
             pb_parts.append(np.asarray(rec.pos_b))
-        kept = np.ones(self.n_sites, dtype=bool)
-        if pa_parts:
-            pa = np.concatenate(pa_parts)
-            pb = np.concatenate(pb_parts)
-            order = np.lexsort((pb, pa))
-            for qa, qb in zip(pa[order], pb[order]):
-                a, b = pos_to_idx[int(qa)], pos_to_idx[int(qb)]
-                if kept[a] and kept[b]:
-                    if rule == "maf" and maf[a] < maf[b]:
-                        kept[a] = False
-                    else:
-                        kept[b] = False
-        # The surviving positions in the caller's input order.
-        return self._in_input_order(self.site_map)[self._in_input_order(kept)]
+        with span("prune.sweep") as sp:
+            maf = self._maf() if rule == "maf" else None
+            kept = np.ones(self.n_sites, dtype=bool)
+            if pa_parts:
+                pa = np.concatenate(pa_parts)
+                pb = np.concatenate(pb_parts)
+                order = np.lexsort((pb, pa))
+                for qa, qb in zip(pa[order], pb[order]):
+                    a, b = pos_to_idx[int(qa)], pos_to_idx[int(qb)]
+                    if kept[a] and kept[b]:
+                        if rule == "maf" and maf[a] < maf[b]:
+                            kept[a] = False
+                        else:
+                            kept[b] = False
+                if sp:
+                    sp.set(pairs=len(pa))
+            # The surviving positions in the caller's input order.
+            return self._in_input_order(self.site_map)[
+                self._in_input_order(kept)]
 
+    @spanned("query.matrices")
     def matrices(self, dtype=np.float32) -> dict[str, np.ndarray]:
         """Full square matrices (``driver.py:1543-1641``): ``{"d",
         "d_prime", "r2": [S, S] dtype, NaN where the pair was skipped or
@@ -1594,10 +1654,15 @@ def _to_host(copy: _Copy) -> list[np.ndarray]:
     """The host arrays of a started copy: the point at which a session's
     batch loops wait for the device, one batch behind its launches
     (:meth:`LdSession._pipelined`)."""
-    if copy.host is None:
-        return [x.cpu().numpy() for x in copy.src]
-    copy.event.synchronize()
-    return [h.numpy() for h in copy.host]
+    with span("batch.wait") as sp:
+        if copy.host is None:
+            out = [x.cpu().numpy() for x in copy.src]
+        else:
+            copy.event.synchronize()
+            out = [h.numpy() for h in copy.host]
+        if sp:
+            sp.set(bytes=sum(a.nbytes for a in out))
+    return out
 
 
 def _fold_within(keep: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
