@@ -30,7 +30,11 @@ result line):
              the plain version in pieces of 128 tiles), whose outputs are
              held against each other, beside its bound, and ``torch._int_mm``
              and a bf16 ``torch.mm`` over the factorized contraction (the
-             yardsticks) in the same call.
+             yardsticks) in the same call; last, ``ld_decay``'s bins kernel
+             (``ld_decay_bins``) against its plain version on one batch of
+             the benchmark's session cell (250 x 49,152, T = 256, edges
+             0, 2, 4): counts equal, sums within rtol 1e-6, the same bits
+             twice, and only ``ld_decay`` kernels in its profile.
 3. main    — the CLI in-process on a synthetic VCF at the headline shape
              (1,000 haplotypes x 49,152 sites, the loaded distribution with
              3,400 planted site triplets), ``--r2-threshold 0.1``: every
@@ -309,7 +313,12 @@ variants of the general body that drop one part of its work
 build,scan`` times the headline session's scans at G = 1 and G = 2 on one
 card and the heavy input's at G = 1, ``stream(decimals=4)`` among them
 where the tree has it, with the device-idle share of one profiled scan of
-each input, and with ``--against DIR`` in another checkout too, in turns.
+each input, and with ``--against DIR`` in another checkout too, in turns;
+``--phases build,decay`` times ``ld_decay``'s bins kernel
+(``ld_decay_bins``) beside its plain version on the batches of the
+benchmark's session cell (250 x 49,152, T = 256), for the cell's edges, one
+bin over every distance and 40 bins, each against the plain version's
+counts and sums, and lists one ``ld_decay`` query's kernels.
 
 The launch counters are zeroed just before each run of the main path and
 read just after it; the kernels line reports ``ld_majmin_planes`` from the
@@ -319,7 +328,8 @@ preplaned ``kernel="general"`` run and ``ld_general_unit`` from its
 ``--unweighted`` CLI run, the four lo_int8 variants from the lo_int8
 runs of the analytics and ambiguous phases, the factorized split_bf16
 and bf16-exact variants from the analytics phase's summarize runs, and the
-general ones from the ambiguous phase's ``kernel="general"`` runs (2c);
+general ones from the ambiguous phase's ``kernel="general"`` runs (2c),
+and ``ld_decay_bins`` from the analytics phase's ``ld_decay`` query;
 to ``ld_majmin_planes``, ``ld_majmin_codes`` and ``ld_general`` the multi
 phase adds both ranks' launches of its headline, stats-only and
 ambiguous runs, each rank counting from 0 at the start of each run, and
@@ -393,6 +403,7 @@ WIN_AMB, WIN_AMB_SLICE, N_SUBSET = 2000, 500, 503
 # name -> (TPU kernel it replaces, source)
 MAJMIN_SRC = "weightedld_tpu_torch/csrc/ld_majmin.cu"
 GENERAL_SRC = "weightedld_tpu_torch/csrc/ld_general.cu"
+REDUCE_SRC = "weightedld_tpu_torch/csrc/ld_reduce.cu"
 KERNELS = {
     "ld_majmin_codes": ("weightedld_tpu/ops/pallas_ld.py:847", MAJMIN_SRC),
     "ld_majmin_planes": ("weightedld_tpu/ops/pallas_ld.py:1110", MAJMIN_SRC),
@@ -428,6 +439,9 @@ KERNELS = {
                               GENERAL_SRC),
     "ld_general_planes_bf16_exact": ("weightedld_tpu/ops/pallas_ld.py:322",
                                      GENERAL_SRC),
+    # ld_decay's distance bins: no Pallas kernel, the fusion XLA makes of
+    # the JAX package's make_decay_runner (sharded.py:392-447).
+    "ld_decay_bins": ("weightedld_tpu/parallel/sharded.py:392", REDUCE_SRC),
 }
 # The H100 SXM's published dense peaks at 700 W (int8 and bf16 tensor
 # cores, HBM3), against which bound_ms is computed.
@@ -1029,6 +1043,8 @@ def phase_kernels() -> dict:
             f"where the dp4a body took {old} ms (an H100 80GB HBM3 at "
             f"700 W) | {card}")
     phase_yardstick()                      # the same call, the same clock
+    name = "ld_decay_bins"
+    ms[name], plain_ms[name], bound[name], err[name] = decay_kernel_row()
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound}
 
 
@@ -1208,11 +1224,14 @@ def _session(res, **cfg):
 def _counted(fn, *args, **kwargs):
     """``(fn's result, the kernel launch counts of that call alone)``."""
     from weightedld_tpu_torch.ops import cuda_general, cuda_ld
+    from weightedld_tpu_torch.parallel import analytics
 
     cuda_ld.reset_launches()
     cuda_general.reset_launches()
+    analytics.reset_launches()
     out = fn(*args, **kwargs)
-    return out, {**cuda_ld.launches, **cuda_general.launches}
+    return out, {**cuda_ld.launches, **cuda_general.launches,
+                 **analytics.launches}
 
 
 def _drive(argv: list[str], timer=None) -> dict:
@@ -1417,6 +1436,8 @@ def _hold_cli_modes(vcf: Path, sess) -> None:
         raise AssertionError(f"--r2-hist {got} differs from r2_histogram")
     got, counts = _json_run(base + ["--ld-decay", DECAY_EDGES])
     need(counts, "--ld-decay")
+    if not counts.get("ld_decay_bins"):
+        raise AssertionError("--ld-decay never launched ld_decay_bins")
     want = sess.ld_decay(DECAY_EDGES.split(","))
     for key in ("n_pairs", "n_d_prime_finite"):
         if got[key] != want[key]:
@@ -1457,7 +1478,8 @@ def phase_analytics(tmp: Path) -> tuple[dict, dict]:
     then the lo_int8 weight mode through the headline CLI and the codes
     entry, and one batch of each lo_int8 factorized session, kernel against
     plain.  Returns the main-path launch counts of the lo_int8 factorized
-    entries and the max abs errors of the batch checks."""
+    entries and of ``ld_decay``'s bins kernel, and the max abs errors of
+    the batch checks."""
     from weightedld_tpu_torch.pipeline import prepare
     from weightedld_tpu_torch.runtime.driver import (DriverConfig, LdSession,
                                                      run_to_tsv)
@@ -1497,12 +1519,17 @@ def phase_analytics(tmp: Path) -> tuple[dict, dict]:
                              f"{n_pairs}, {len(rec)} records over 0.1")
     log(f"[analytics] r2_histogram: {hist['n_pairs']} sum to n_pairs ({dt})")
 
-    decay, dt = timed("ld_decay", sess.ld_decay, DECAY_EDGES.split(","))
+    t0 = time.monotonic()
+    decay, counts = _counted(sess.ld_decay, DECAY_EDGES.split(","))
+    dt = f"{time.monotonic() - t0:.3f}s"
+    need(counts, "ld_majmin_planes", "ld_decay")
+    need(counts, "ld_decay_bins", "ld_decay")
     if sum(decay["n_pairs"]) != n_pairs:
         raise AssertionError(f"ld_decay: {decay['n_pairs']} do not sum to "
                              f"n_pairs {n_pairs}")
     log(f"[analytics] ld_decay: n_pairs {decay['n_pairs']} sum to n_pairs, "
-        f"r2_mean {decay['r2_mean']} ({dt})")
+        f"r2_mean {decay['r2_mean']}; launches {counts} ({dt})")
+    decay_launches = counts["ld_decay_bins"]
 
     top, dt = timed("top_pairs", sess.top_pairs, TOP_K)
     keys = set(zip(top.pos_a.tolist(), top.pos_b.tolist()))
@@ -1575,7 +1602,8 @@ def phase_analytics(tmp: Path) -> tuple[dict, dict]:
                                  "lo_int8"])
     need(counts, "ld_majmin_planes_lo_int8", "--weight-quant lo_int8")
     launches = {"ld_majmin_planes_lo_int8":
-                counts["ld_majmin_planes_lo_int8"]}
+                counts["ld_majmin_planes_lo_int8"],
+                "ld_decay_bins": decay_launches}
     if summ_lo["n_over_threshold"] != len(rec) \
             or summ_lo["n_pairs"] != n_pairs:
         raise AssertionError(f"lo_int8 --stats-only: {summ_lo} vs int8x3 "
@@ -3269,6 +3297,153 @@ def _profile_scan(sess, label: str, **kw) -> None:
         log(f"[profile]   {ms_k:10.3f} ms x{count:<4d} {name[:90]}")
 
 
+DECAY_N, DECAY_S = 250, 49152      # the session cell, crit250_vcf
+DECAY_CELL_EDGES = (0, 2, 4)       # the cell's ld_decay edges
+DECAY_CASES = {"cell (0, 2, 4)": DECAY_CELL_EDGES,
+               "one bin over every distance": (0, 2 ** 31 - 1),
+               "40 bins": tuple(range(0, 49201, 1230))}
+
+
+def _decay_cell():
+    """``(session, its device site map, T)`` at the shape of the
+    benchmark's session cell (250 x 49,152, T = 256, 8 batches)."""
+    from weightedld_tpu_torch.runtime.driver import DriverConfig, LdSession
+
+    rng = np.random.default_rng(19)
+    r = rng.random((DECAY_N, DECAY_S))
+    codes = np.where(r < 0.6, 0, np.where(r < 0.9, 1, 4)).astype(np.int8)
+    sess = LdSession(codes, None, 1 + np.arange(DECAY_S),
+                     DriverConfig(r2_threshold=0.1), device="cuda")
+    return sess, sess._site_map_dev("ld_decay"), sess.cfg.tile
+
+
+def _hold_decay(got, want, label: str) -> float:
+    """Counts equal, sums within rtol 1e-6 of the plain version; returns
+    the max abs difference of the sums."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    if not (g[:, [0, 3]] == w[:, [0, 3]]).all() or not np.allclose(
+            g[:, [1, 2]], w[:, [1, 2]], rtol=1e-6, atol=0):
+        raise AssertionError(f"[decay] {label}: kernel {g.tolist()} != "
+                             f"plain {w.tolist()}")
+    return float(np.abs(g[:, [1, 2]] - w[:, [1, 2]]).max())
+
+
+def decay_kernel_row() -> tuple[float, float, tuple[float, str], float]:
+    """The kernels line's ``ld_decay_bins`` row: batch 0 of the session
+    cell's shape at its edges, the kernel (``decay_batch`` on the card)
+    against the plain version (``decay_batch_plain`` on the same card
+    tensors) by CUDA events; the same bits on a second run, and a profile
+    in which the reduction runs only ``ld_decay`` kernels.  Returns ``(ms,
+    plain_ms, (bound_ms, "bytes"), max abs err)``, the bound at 9 bytes a
+    pair slot."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from weightedld_tpu_torch.parallel import analytics
+
+    sess, sm, t = _decay_cell()
+    st, ti, tj = sess._dispatch(0)
+    fn = lambda: analytics.decay_batch(st, ti, tj, sm, DECAY_CELL_EDGES,
+                                       tile=t)
+    plain = lambda: analytics.decay_batch_plain(st, ti, tj, sm,
+                                                DECAY_CELL_EDGES, tile=t)
+    ms, got = _time_cuda(fn, 20)
+    plain_ms, want = _time_cuda(plain, 3)
+    e = _hold_decay(got, want, "kernels row")
+    if fn().cpu().numpy().tobytes() != got.cpu().numpy().tobytes():
+        raise AssertionError("[decay] bits differ between two runs")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    if not rows or any("ld_decay" not in n for n, _m, _c in rows):
+        raise AssertionError(f"[decay] the reduction ran other device work "
+                             f"than the ld_decay kernels: {rows}")
+    slots = st.r2.numel()
+    bound = 9 * slots / PEAK_BYTES * 1e3
+    log(f"[kernels] ld_decay_bins, batch 0 of {DECAY_N} x {DECAY_S} (T = "
+        f"{t}, {slots} slots), edges {DECAY_CELL_EDGES}: {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound at 9 B a slot {bound:.4f} ms; max abs "
+        f"err {e}; same bits twice; device work "
+        f"{[(n[:60], round(m, 4)) for n, m, _c in rows]} | {card_line()}")
+    return ms, plain_ms, (bound, "bytes"), e
+
+
+def phase_decay() -> None:
+    """Not in the default run: ``ld_decay``'s bins on each batch of the
+    session cell's shape, the kernel against the plain version by CUDA
+    events, in turns, for each of ``DECAY_CASES``, with the kernel's
+    bounds: 9 bytes a slot at 3.35 TB/s, and what the inputs need (a keep
+    byte a slot, and r2 and D' only for the 4-slot vectors that hold a
+    kept pair inside the bins).  Then one ``ld_decay`` query of the
+    cell's edges: its device kernels by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from weightedld_tpu_torch.parallel import analytics
+
+    log(f"[decay] card: {card_line()}")
+    sess, sm, t = _decay_cell()
+    log(f"[decay] {DECAY_N} x {DECAY_S}, T = {t}, {sess.n_batches} batches, "
+        f"{sess.plan.n_tiles} tile pairs")
+    tot = {label: [0.0, 0.0, 0.0, 0.0] for label in DECAY_CASES}
+    for b in range(sess.n_batches):
+        st, ti, tj = sess._dispatch(b)
+        slots = st.r2.numel()
+        li = torch.arange(t, device=sm.device)
+        sma = sm[ti.long()[:, None] * t + li]
+        smb = sm[tj.long()[:, None] * t + li]
+        dist = (smb[:, None, :] - sma[:, :, None]).abs()
+        for label, edges in DECAY_CASES.items():
+            fn = lambda e=edges: analytics.decay_batch(st, ti, tj, sm, e,
+                                                        tile=t)
+            plain = lambda e=edges: analytics.decay_batch_plain(
+                st, ti, tj, sm, e, tile=t)
+            ms_p1, want = _time_cuda(plain, 3)
+            ms_k1, got = _time_cuda(fn, 20)
+            ms_k2, again = _time_cuda(fn, 20)
+            ms_p2, _ = _time_cuda(plain, 3)
+            _hold_decay(got, want, f"batch {b} {label}")
+            if got.cpu().numpy().tobytes() != again.cpu().numpy().tobytes():
+                raise AssertionError(f"[decay] batch {b} {label}: bits "
+                                     "differ between two runs")
+            inb = st.keep & (dist >= edges[0]) & (dist < edges[-1])
+            vecs = int(inb.reshape(-1, 4).any(dim=1).sum())
+            need = slots + 32 * vecs
+            acc = tot[label]
+            acc[0] += (ms_k1 + ms_k2) / 2
+            acc[1] += (ms_p1 + ms_p2) / 2
+            acc[2] += slots
+            acc[3] += need
+            if b == 0:
+                log(f"[decay] batch 0 ({slots} slots), {label}: kernel "
+                    f"{ms_k1:.4f} / {ms_k2:.4f} ms, plain {ms_p1:.3f} / "
+                    f"{ms_p2:.3f} ms; bound 9 B a slot "
+                    f"{9 * slots / PEAK_BYTES * 1e3:.4f} ms; the inputs "
+                    f"need {need / 1e9:.4f} GB, "
+                    f"{need / PEAK_BYTES * 1e3:.4f} ms")
+        del st, dist
+    for label, (ms_k, ms_p, slots, need) in tot.items():
+        b9 = 9 * slots / PEAK_BYTES * 1e3
+        bn = need / PEAK_BYTES * 1e3
+        log(f"[decay] scan, {label}: kernel {ms_k:.4f} ms "
+            f"({ms_k / sess.n_batches:.4f} a batch), plain {ms_p:.3f} ms; "
+            f"{slots:.0f} slots; bound at 9 B a slot {b9:.4f} ms "
+            f"({b9 / ms_k:.1%} of it); the inputs need {need / 1e9:.4f} GB, "
+            f"{bn:.4f} ms ({bn / ms_k:.1%} of it)")
+    sess.ld_decay(DECAY_CELL_EDGES)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sess.ld_decay(DECAY_CELL_EDGES)
+        torch.cuda.synchronize()
+    for name, ms_k, count in device_rows(prof):
+        log(f"[decay] ld_decay query: {ms_k:10.3f} ms x{count:<4d} "
+            f"{name[:90]}")
+
+
 def phase_entries() -> None:
     """Not in the default run: the codes entry against the preplaned entry,
     whole sessions on Henikoff-weighted loaded alignments at several N, S
@@ -4927,7 +5102,8 @@ XLA_RTOL, XLA_ATOL = 2e-5, 1e-6
 # the sites), and the general case under unit weights.
 XLA_LIBRARY_INPUT = {name: ("unit" if name == "ld_general_unit" else
                             "general" if name.startswith("ld_general")
-                            else "factorized") for name in KERNELS}
+                            else "factorized") for name in KERNELS
+                     if name != "ld_decay_bins"}
 
 
 def _stream_map(sess) -> dict:
@@ -5188,7 +5364,7 @@ def _library_ms(kernel_ms: dict | None) -> dict:
             f"float32_matmul_precision('high') | {card}")
         del codes, wp
     rows = {}
-    for name in KERNELS:
+    for name in XLA_LIBRARY_INPUT:
         rows[name] = lib[XLA_LIBRARY_INPUT[name]]
         ratio = ("" if not kernel_ms else
                  f", kernel {kernel_ms[name]:.3f} ms, kernel / library "
@@ -5364,7 +5540,8 @@ def main() -> int:
                     help="comma-separated subset of build, kernels, main, "
                     "cpu-vs-card, analytics, ambiguous, ingest, windows, "
                     "flags, multi, api, transport, xla, bench, profile, "
-                    "entries, pace, general, gpace, yardstick and scan "
+                    "entries, pace, general, gpace, yardstick, scan and "
+                    "decay "
                     "(default: the first fourteen, which the result line "
                     "needs)")
     ap.add_argument("--against", default=None, metavar="DIR",
@@ -5487,6 +5664,8 @@ def main() -> int:
             phase_yardstick()              # the kernels phase runs it too
         if "scan" in phases:
             phase_scan(tmp, args.against)
+        if "decay" in phases:
+            phase_decay()
     if set(phases) != set(DEFAULT_PHASES):
         log("[smoke] partial run: no result line")
         return 0
@@ -5500,6 +5679,7 @@ def main() -> int:
         f"kernel='general' lo_int8 run; the factorized split_bf16 and "
         f"bf16-exact variants from the headline summarize runs of each "
         f"entry, the general ones from the ambiguous kernel='general' runs; "
+        f"ld_decay_bins from the analytics phase's ld_decay query; "
         f"ld_majmin_planes, ld_majmin_codes and ld_general add both ranks' "
         f"launches of the multi phase's headline, stats-only and ambiguous "
         f"two-process runs, and the api phase's examples' launches: "
@@ -5508,9 +5688,10 @@ def main() -> int:
     if missing:
         raise AssertionError(f"no main-path launch of {missing}")
     # No single PyTorch call computes any of these functions (per-pair
-    # major/dmin selection, the weighted combine and the pair algebra), so
-    # library_ms is null; the xla phase prints the time of the whole
-    # function in plain PyTorch (the XLA tile engine) beside each row.
+    # major/dmin selection, the weighted combine and the pair algebra; the
+    # decay bins' selects and sums), so library_ms is null; the xla phase
+    # prints the time of the LD functions in plain PyTorch (the XLA tile
+    # engine) beside their rows.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],

@@ -318,6 +318,159 @@ def test_hist_batch_counts_every_bin(n_edges):
     assert got.dtype == torch.int64 and got.tolist() == want
 
 
+def _decay_numpy(r2, dp, keep, pos_a, pos_b, edges):
+    """The decay bins by their definition, one pair at a time in float64:
+    ``[K, T, T]`` stats, ``[K, T]`` row and column positions."""
+    out = np.zeros((len(edges) - 1, 4))
+    for k, a, b in zip(*np.nonzero(keep)):
+        dist = abs(int(pos_b[k, b]) - int(pos_a[k, a]))
+        for i, (lo, hi) in enumerate(zip(edges, edges[1:])):
+            if lo <= dist < hi:
+                out[i, 0] += 1
+                out[i, 1] += float(r2[k, a, b])
+                if np.isfinite(dp[k, a, b]):
+                    out[i, 2] += abs(float(dp[k, a, b]))
+                    out[i, 3] += 1
+    return out
+
+
+def _decay_case(seed, k=3, tile=8, packed=False):
+    """A hand-built batch: ``(PairStats, tile_i, tile_j, sm_pad)`` with
+    r2 and D' on a 1/64 grid (sums exact in float32), unkept slots holding
+    NaN as padding does, kept pairs with NaN and infinite D', and, when
+    ``packed``, positions that are not monotone inside a tile."""
+    import torch
+
+    from weightedld_tpu_torch.core.paircore import PairStats
+
+    rng = np.random.default_rng(seed)
+    grid = 4
+    pos = np.cumsum(rng.integers(0, 7, grid * tile)).astype(np.int32)
+    if packed:
+        pos = rng.permutation(pos)
+    ti = rng.integers(0, grid, k).astype(np.int32)
+    tj = rng.integers(0, grid, k).astype(np.int32)
+    keep = rng.random((k, tile, tile)) < 0.6
+    r2 = np.float32(rng.integers(0, 65, (k, tile, tile)) / 64)
+    dp = np.float32(rng.integers(-64, 65, (k, tile, tile)) / 64)
+    r2[~keep] = dp[~keep] = np.nan
+    kept = np.flatnonzero(keep)
+    dp.reshape(-1)[kept[:3]] = (np.nan, np.inf, -np.inf)
+    t = torch.from_numpy
+    return (PairStats(t(np.zeros_like(r2)), t(dp), t(r2), t(keep)),
+            t(ti), t(tj), t(pos))
+
+
+DECAY_EDGES = {
+    "typical": (0, 3, 10, 40),
+    "below-zero": (-20, -1, 2, 25),
+    "past-the-end": (5, 50, 2 ** 31 - 1),
+    "one-bin": (0, 2 ** 20),
+}
+
+
+@pytest.mark.parametrize("packed", (False, True))
+@pytest.mark.parametrize("edges", list(DECAY_EDGES))
+def test_decay_batch_plain_selection_rules(edges, packed):
+    """``decay_batch_plain`` against the bins' definition: only kept pairs
+    count (unkept slots hold NaN), |D'| and its count over finite D' only,
+    distances as integers against edges below 0 and past the largest
+    distance, and orientation-free distances for a packed tile."""
+    import torch
+
+    from weightedld_tpu_torch.parallel.analytics import decay_batch_plain
+
+    st, ti, tj, pos = _decay_case(1, packed=packed)
+    e = DECAY_EDGES[edges]
+    tile = st.r2.shape[1]
+    got = decay_batch_plain(st, ti, tj, pos, e, tile=tile)
+    pa = pos.numpy()[ti.numpy()[:, None] * tile + np.arange(tile)]
+    pb = pos.numpy()[tj.numpy()[:, None] * tile + np.arange(tile)]
+    want = _decay_numpy(st.r2.numpy(), st.d_prime.numpy(), st.keep.numpy(),
+                        pa, pb, e)
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want[:, 0].sum() > 0
+
+
+def test_decay_batch_plain_propagates_a_kept_nan_r2():
+    """A kept pair's NaN r2 makes its own bin's sum NaN, as
+    ``torch.where(m, r2, 0).sum()`` does, and no other bin's."""
+    from weightedld_tpu_torch.parallel.analytics import decay_batch_plain
+
+    st, ti, tj, pos = _decay_case(2)
+    tile = st.r2.shape[1]
+    k, a, b = (int(x[0]) for x in np.nonzero(st.keep.numpy()))
+    dist = abs(int(pos[tj[k] * tile + b]) - int(pos[ti[k] * tile + a]))
+    edges = (0, dist + 1, 10 ** 6)
+    before = decay_batch_plain(st, ti, tj, pos, edges, tile=tile).numpy()
+    st.r2[k, a, b] = float("nan")
+    got = decay_batch_plain(st, ti, tj, pos, edges, tile=tile).numpy()
+    assert np.isnan(got[0, 1]) and not np.isnan(before[0, 1])
+    np.testing.assert_array_equal(np.delete(got, 1, axis=1),
+                                  np.delete(before, 1, axis=1))
+    np.testing.assert_array_equal(got[1], before[1])
+
+
+def test_decay_batch_takes_the_plain_version_for_cpu_tensors(monkeypatch):
+    """On CPU stats ``decay_batch`` is ``decay_batch_plain`` bit for bit,
+    without building or loading the kernel, and counts no launch."""
+    from weightedld_tpu_torch.ops import _build
+    from weightedld_tpu_torch.parallel import analytics
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the kernel was asked for on the CPU")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    monkeypatch.setattr(analytics, "_decay_bins_cuda", refuse)
+    analytics.reset_launches()
+    st, ti, tj, pos = _decay_case(3, packed=True)
+    e = DECAY_EDGES["typical"]
+    got = analytics.decay_batch(st, ti, tj, pos, e, tile=8)
+    want = analytics.decay_batch_plain(st, ti, tj, pos, e, tile=8)
+    assert got.numpy().tobytes() == want.numpy().tobytes()
+    assert analytics.launches == {"ld_decay_bins": 0}
+
+
+def test_decay_batch_on_cuda_tensors_never_falls_back(monkeypatch):
+    """Stats that say they lie on a CUDA device go to the kernel, and where
+    it cannot run (no card, no nvcc) the call raises: the plain version is
+    never run for them.  Any other device raises too."""
+    import torch
+
+    from weightedld_tpu_torch.core.paircore import PairStats
+    from weightedld_tpu_torch.parallel import analytics
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the kernel would run")
+
+    class FellBack(Exception):
+        pass
+
+    def fell_back(*_a, **_k):
+        raise FellBack
+
+    class OnCuda(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda", 0)
+
+    monkeypatch.setattr(analytics, "decay_batch_plain", fell_back)
+    st, ti, tj, pos = _decay_case(4)
+    cuda = [x.as_subclass(OnCuda) for x in (*st, ti, tj, pos)]
+    with pytest.raises((RuntimeError, AssertionError)):
+        analytics.decay_batch(PairStats(*cuda[:4]), *cuda[4:6], cuda[6],
+                              (0, 10), tile=8)
+    with pytest.raises(TypeError, match="keep must be torch.bool"):
+        analytics.decay_batch(
+            PairStats(*cuda[:3], cuda[3].to(torch.uint8).as_subclass(OnCuda)),
+            *cuda[4:], (0, 10), tile=8)
+    meta = PairStats(*(x.to("meta") for x in st))
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        analytics.decay_batch(meta, ti, tj, pos, (0, 10), tile=8)
+    assert analytics.launches == {"ld_decay_bins": 0}
+
+
 def test_matrices_refuse_bfloat16_and_other_dtypes():
     rng = np.random.default_rng(2)
     aln = rng.choice((0, 1), size=(20, 40)).astype(np.int8)

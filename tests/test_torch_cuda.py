@@ -532,3 +532,240 @@ def test_xla_engine_on_card_equals_cpu(cuda_device, unit):
         fin = np.isfinite(a)
         np.testing.assert_array_equal(fin, np.isfinite(b))
         np.testing.assert_allclose(b[fin], a[fin], rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# The LD-decay kernel (csrc/ld_reduce.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+# id -> (DriverConfig keywords, sites with UNKNOWN cells)
+DECAY_SOURCES = {
+    "majmin": (dict(tile=128, seq_chunk=64), 0),
+    "general": (dict(tile=128, seq_chunk=64, kernel="general"), 20),
+    "hybrid-packed": (dict(tile=128, seq_chunk=64), 20),
+    "xla": (dict(tile=128, engine="xla"), 20),
+    "windowed": (dict(tile=128, seq_chunk=64, max_bp_distance=300), 0),
+}
+DECAY_SITES = 700                      # 5 tiles and a padded last one
+DECAY_POS = np.arange(DECAY_SITES) * 2 + 1
+
+
+def _decay_edges(n_bins: int) -> tuple:
+    """``n_bins`` bins from below 0 to past the largest distance (1,398):
+    1, 2 and 5 bins take one launch, 40 five launches of 8 bins and 300
+    38 launches, the last of 4 bins."""
+    fixed = {1: (0, 700), 2: (0, 100, 1000),
+             5: (-7, 0, 10, 100, 1000, 2000)}
+    if n_bins in fixed:
+        return fixed[n_bins]
+    edges = tuple(int(e) for e in np.linspace(-3, 1500, n_bins + 1))
+    assert len(set(edges)) == n_bins + 1
+    return edges
+
+
+def _decay_session(source: str, device, devices=None) -> LdSession:
+    kw, dirty = DECAY_SOURCES[source]
+    rng = np.random.default_rng(16)
+    aln = _scattered_alignment(rng, 200, DECAY_SITES, dirty)
+    w = (rng.random(200) + 0.05).astype(np.float32)
+    cfg = DriverConfig(**kw)
+    if devices is not None:
+        return LdSession(aln, w, DECAY_POS, cfg, devices=devices)
+    return LdSession(aln, w, DECAY_POS, cfg, device=device)
+
+
+def _assert_bins(got: torch.Tensor, want: torch.Tensor) -> None:
+    """Counts equal, sums within rtol 1e-6 (the kernel sums in float64,
+    the plain version in float32), NaN where the plain version has it."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    assert g.shape == w.shape and got.dtype == torch.float64
+    np.testing.assert_array_equal(g[:, [0, 3]], w[:, [0, 3]])
+    np.testing.assert_allclose(g[:, [1, 2]], w[:, [1, 2]], rtol=1e-6,
+                               atol=0, equal_nan=True)
+
+
+def _plain_bins(st, ti, tj, sm, edges, tile) -> torch.Tensor:
+    from weightedld_tpu_torch.parallel.analytics import decay_batch_plain
+
+    cpu = K.PairStats(*(x.cpu() for x in st))
+    return decay_batch_plain(cpu, ti.cpu(), tj.cpu(), sm.cpu(), edges,
+                             tile=tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bins", (1, 2, 5, 40, 300))
+@pytest.mark.parametrize("source", list(DECAY_SOURCES))
+def test_decay_kernel_matches_plain_on_card(cuda_device, source, n_bins):
+    """Every batch of a session on each producer of ``PairStats`` (the
+    factorized and general kernels, the hybrid's packed plan, the XLA
+    engine, a bp window folded into keep), through ``decay_batch`` on the
+    card against ``decay_batch_plain`` on the CPU copies of the same
+    stats; ceil(B / 8) launches a batch; the same bits on a second
+    run."""
+    from weightedld_tpu_torch.parallel import analytics
+
+    sess = _decay_session(source, cuda_device)
+    if source == "hybrid-packed":
+        assert sess.site_perm is not None
+    assert sess.plan.s_pad > DECAY_SITES
+    edges = _decay_edges(n_bins)
+    sm = sess._site_map_dev("ld_decay")
+    t = sess.cfg.tile
+    for b in range(sess.n_batches):
+        st, ti, tj = sess._dispatch(b)
+        analytics.reset_launches()
+        got = analytics.decay_batch(st, ti, tj, sm, edges, tile=t)
+        again = analytics.decay_batch(st, ti, tj, sm, edges, tile=t)
+        torch.cuda.synchronize()
+        assert analytics.launches == {"ld_decay_bins": 2 * -(-n_bins // 8)}
+        assert got.cpu().numpy().tobytes() == again.cpu().numpy().tobytes()
+        want = _plain_bins(st, ti, tj, sm, edges, t)
+        _assert_bins(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bins", (5, 40))
+def test_decay_kernel_nan_and_infinite_d_prime_on_card(cuda_device, n_bins):
+    """Kept pairs with NaN and infinite D' (left out of the |D'| sum and
+    its count) and one kept pair with a NaN r2 (its bin's r2 sum NaN, no
+    other bin's), against the plain version."""
+    from weightedld_tpu_torch.parallel import analytics
+
+    sess = _decay_session("majmin", cuda_device)
+    edges = _decay_edges(n_bins)
+    sm = sess._site_map_dev("ld_decay")
+    st, ti, tj = sess._dispatch(0)
+    kept = torch.nonzero(st.keep.reshape(-1)).reshape(-1)
+    assert kept.numel() > 100
+    dp, r2 = st.d_prime.clone(), st.r2.clone()
+    dp.view(-1)[kept[::7]] = float("nan")
+    dp.view(-1)[kept[3::11]] = float("inf")
+    dp.view(-1)[kept[5::13]] = -float("inf")
+    r2.view(-1)[kept[kept.numel() // 2]] = float("nan")
+    st = K.PairStats(st.d, dp, r2, st.keep)
+    got = analytics.decay_batch(st, ti, tj, sm, edges, tile=sess.cfg.tile)
+    want = _plain_bins(st, ti, tj, sm, edges, sess.cfg.tile)
+    assert np.isnan(want[:, 1].numpy()).sum() == 1
+    _assert_bins(got, want)
+
+
+def _shifted(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` one element past an aligned address."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return flat[1:].view(x.shape).copy_(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bins", (2, 5, 40))
+@pytest.mark.parametrize("tile", (10, 12, 64))
+def test_decay_kernel_on_hand_built_stats_on_card(cuda_device, tile, n_bins):
+    """Random stats at tiles that take the one-slot loads (T = 10) and the
+    16-byte ones (12, 64), unkept slots NaN, positions permuted inside the
+    tiles; and the same stats one element past an aligned address (the
+    one-slot loads again)."""
+    from weightedld_tpu_torch.parallel import analytics
+
+    rng = np.random.default_rng(tile * 100 + n_bins)
+    k, grid = 37, 9
+    pos = rng.permutation(np.cumsum(rng.integers(0, 9, grid * tile)))
+    keep = rng.random((k, tile, tile)) < 0.7
+    r2 = rng.random((k, tile, tile)).astype(np.float32)
+    dp = rng.uniform(-1, 1, (k, tile, tile)).astype(np.float32)
+    r2[~keep] = dp[~keep] = np.nan
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    ti = t(rng.integers(0, grid, k).astype(np.int32))
+    tj = t(rng.integers(0, grid, k).astype(np.int32))
+    sm = t(pos.astype(np.int32))
+    edges = _decay_edges(n_bins)
+    st = K.PairStats(t(np.zeros_like(r2)), t(dp), t(r2), t(keep))
+    for st in (st, K.PairStats(*(_shifted(x) for x in st))):
+        got = analytics.decay_batch(st, ti, tj, sm, edges, tile=tile)
+        _assert_bins(got, _plain_bins(st, ti, tj, sm, edges, tile))
+        assert got[:, 0].sum() > 0
+
+
+@pytest.mark.cuda
+def test_decay_kernel_refuses_what_it_does_not_take(cuda_device):
+    from weightedld_tpu_torch.parallel import analytics
+
+    sess = _decay_session("majmin", cuda_device)
+    sm = sess._site_map_dev("ld_decay")
+    st, ti, tj = sess._dispatch(0)
+    t = sess.cfg.tile
+    with pytest.raises(ValueError, match="contiguous"):
+        analytics.decay_batch(
+            K.PairStats(st.d, st.d_prime, st.r2.transpose(1, 2), st.keep),
+            ti, tj, sm, (0, 10), tile=t)
+    with pytest.raises(TypeError, match="keep must be torch.bool"):
+        analytics.decay_batch(
+            K.PairStats(st.d, st.d_prime, st.r2, st.keep.to(torch.uint8)),
+            ti, tj, sm, (0, 10), tile=t)
+    with pytest.raises(ValueError, match="is on cpu"):
+        analytics.decay_batch(st, ti, tj, sm.cpu(), (0, 10), tile=t)
+    empty = K.PairStats(*(x[:0] for x in st))
+    got = analytics.decay_batch(empty, ti[:0], tj[:0], sm, (0, 10, 20),
+                                tile=t)
+    assert got.tolist() == [[0.0] * 4] * 2
+
+
+@pytest.mark.cuda
+def test_decay_kernel_faults_on_a_tile_index_out_of_range(cuda_device):
+    """A tile index past ``S_pad / T`` stops the kernel with a device fault
+    (in a child process: the fault ends its CUDA context) instead of
+    reading outside the site map; the same call in range succeeds."""
+    import subprocess
+    import sys
+    import textwrap
+
+    code = textwrap.dedent(f"""
+        import sys, torch
+        from weightedld_tpu_torch.core.paircore import PairStats
+        from weightedld_tpu_torch.parallel.analytics import decay_batch
+        dev = torch.device({str(cuda_device)!r})
+        k, t = 3, 16
+        st = PairStats(*(torch.zeros((k, t, t), device=dev)
+                         for _ in range(3)),
+                       torch.ones((k, t, t), dtype=torch.bool, device=dev))
+        sm = torch.arange(4 * t, dtype=torch.int32, device=dev)
+        ti = torch.tensor([0, 1, int(sys.argv[1])], dtype=torch.int32,
+                          device=dev)
+        tj = torch.tensor([1, 2, 3], dtype=torch.int32, device=dev)
+        try:
+            out = decay_batch(st, ti, tj, sm, (0, 100), tile=t)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            print("fault:", exc)
+            sys.exit(3)
+        print(out.tolist())
+    """)
+    runs = {i: subprocess.run([sys.executable, "-c", code, str(i)],
+                              capture_output=True, text=True, timeout=300)
+            for i in (3, 4)}
+    assert runs[3].returncode == 0, runs[3].stderr
+    assert runs[3].stdout.strip() == str([[3.0 * 16 * 16, 0.0, 0.0,
+                                           3.0 * 16 * 16]])
+    assert runs[4].returncode != 0 and "[[" not in runs[4].stdout
+
+
+@pytest.mark.cuda
+def test_decay_session_launches_once_a_batch_and_shard(cuda_device):
+    """``ld_decay`` on two shards sharing the card: one launch a batch and
+    shard, and the curve of one shard on the card and of the CPU."""
+    from weightedld_tpu_torch.parallel import analytics
+
+    edges = (0, 10, 100, 1000, 2000)
+    runs = {}
+    for name, devs in (("cpu", ["cpu"]), ("g1", [cuda_device]),
+                       ("g2", [cuda_device, cuda_device])):
+        sess = _decay_session("hybrid-packed", None, devices=devs)
+        analytics.reset_launches()
+        runs[name] = sess.ld_decay(edges)
+        want = 0 if name == "cpu" else sess.n_batches * len(devs)
+        assert analytics.launches == {"ld_decay_bins": want}
+    for name in ("g1", "g2"):
+        assert runs[name]["n_pairs"] == runs["cpu"]["n_pairs"]
+        assert runs[name]["n_d_prime_finite"] \
+            == runs["cpu"]["n_d_prime_finite"]
+        for key in ("r2_sum", "abs_d_prime_sum"):
+            np.testing.assert_allclose(runs[name][key], runs["cpu"][key],
+                                       rtol=1e-6)

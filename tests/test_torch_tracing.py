@@ -223,6 +223,21 @@ def test_session_query_spans(query, shards):
         assert scan.parent_id == root.id and scan.end <= sweep.start
 
 
+@pytest.mark.parametrize("shards", (1, 2))
+def test_ld_decay_reduce_spans_name_their_path(shards):
+    """``ld_decay``'s ``batch.reduce`` spans say which version reduced the
+    slice (``plain`` on the CPU, ``ld_decay_bins`` on a card) and how many
+    pair slots it read: every batch's tile pairs times T^2."""
+    sess = _session(shards)
+    _out, spans = _traced(lambda: sess.ld_decay([0, 50, 500, 5000]))
+    reduces = [s for s in spans if s.name == "batch.reduce"]
+    assert len(reduces) == sess.n_batches * shards
+    assert {s.attrs["kernel"] for s in reduces} == {"plain"}
+    tiles = sum(len(sess.batch_tiles_host(b, sh)[0])
+                for b in range(sess.n_batches) for sh in range(shards))
+    assert sum(s.attrs["slots"] for s in reduces) == tiles * TILE ** 2
+
+
 def test_stream_span_closes_with_the_generator():
     """A stream closed after its first batch ends its span then; spans
     opened between its items are not its children."""

@@ -39,12 +39,14 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Entry point -> argument types.  ld_majmin_*: 12 pointers, 8 ints, the
-# stream; ld_general*: 12 pointers, 10 ints, the stream.
+# stream; ld_general*: 12 pointers, 10 ints, the stream; ld_decay_bins: 10
+# pointers, 6 ints, the stream.
 ENTRIES = {
     "ld_majmin_codes": [_P] * 12 + [_I] * 8 + [_P],
     "ld_majmin_planes": [_P] * 12 + [_I] * 8 + [_P],
     "ld_general": [_P] * 12 + [_I] * 10 + [_P],
     "ld_general_unit": [_P] * 12 + [_I] * 10 + [_P],
+    "ld_decay_bins": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 
