@@ -104,7 +104,7 @@ def one_seed(cell, gen, seed: int, mode: str, device: str, seconds: float,
         else:
             win, state = loops.run_session(cell.config, mix, data, tmpdir,
                                            device, seconds, False,
-                                           lambda s: {})
+                                           lambda s, p: {})
             del state
         answers, n = win.answers, len(win.jobs) + len(win.queries)
         if device == "cuda":

@@ -114,26 +114,32 @@ def run_cli(mix: dict, data: dict, tmpdir: str, device: str,
 def build_session(config: dict, data: dict, mix: dict, device: str):
     """The session the way ``examples_torch/serving_session.py`` builds
     it after its read, from the generated matrix: the site mask where the
-    configuration masks (FASTA), weights on the device (``weights=None``,
+    configuration masks (FASTA), as the example's read (``wld.prepare``)
+    masks, on the host in float64; weights on the device (``weights=None``,
     the example's tip), ``DriverConfig(r2_threshold=...)`` with the mix's
-    ``driver`` options, if any.  Returns ``(session, kept positions)``."""
-    import weightedld_tpu_torch as wld
+    ``driver`` options, if any.  Returns ``(session, kept positions, kept
+    codes)``."""
+    from weightedld_tpu_torch.core.sites import compute_variable_sites_host
     from weightedld_tpu_torch.runtime.driver import DriverConfig, LdSession
 
     codes = data["codes"]
     pos = data["positions"]
     if config.get("mask"):
-        _hk, ld = wld.compute_variable_sites(
-            codes, config["min_acgt"], config["min_variability"],
-            device=device)
-        keep = ld.cpu().numpy()
+        _hk, keep = compute_variable_sites_host(
+            codes, config["min_acgt"], config["min_variability"])
         codes = np.ascontiguousarray(codes[:, keep])
         pos = pos[keep]
     sess = LdSession(codes, None, pos,
                      DriverConfig(r2_threshold=mix["session_threshold"],
                                   **mix.get("driver", {})),
                      device=device)
-    return sess, pos
+    return sess, pos, codes
+
+
+def allele_planes(codes: np.ndarray) -> int:
+    """The allele codes 0..4 present in ``codes``: the planes P of the
+    general kernel's least work."""
+    return sum(bool((codes == c).any()) for c in range(5))
 
 
 FIELDS = ("pos_a", "pos_b", "d", "dp", "r2")
@@ -185,12 +191,15 @@ def _cycles(mix: dict, t0: float, seconds: float):
 def run_session(config: dict, mix: dict, data: dict, tmpdir: str,
                 device: str, seconds: float, traced: bool,
                 work_of) -> tuple[Window, object]:
-    """Queries back to back to one device-resident session."""
-    sess, pos = build_session(config, data, mix, device)
+    """Queries back to back to one device-resident session;
+    ``work_of(session, planes)`` gives the window's work per kernel
+    class."""
+    sess, pos, codes = build_session(config, data, mix, device)
     for q in mix["cycle"]:          # one warm query of each kind
         ask(sess, q)
     win = Window(loop="session")
-    win.work = work_of(sess)
+    # The planes of the sites the session holds, not of every column.
+    win.work = work_of(sess, allele_planes(codes))
     summaries: list = []
     with trace.profiled(traced, device != "cpu", tmpdir, summaries):
         with record_function(trace.WINDOW):

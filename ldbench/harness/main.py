@@ -218,10 +218,9 @@ def _run(args, cell, gen, mix, device, tmpdir, t_start) -> int:
     elif mix["loop"] == "session":
         roofline = spec.load_module(spec.find(cell.root, "metrics",
                                               "roofline", ".py"))
-        planes = int(np.unique(data["codes"][data["codes"] < 5]).size)
         win, state = loops.run_session(
             cell.config, mix, data, tmpdir, device, args.seconds, traced,
-            lambda s: roofline.session_work(s, planes))
+            roofline.session_work)
     else:
         raise ValueError(f"unknown loop {mix['loop']!r}")
     setup_s = win.t_first - t_start

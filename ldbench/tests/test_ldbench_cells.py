@@ -8,9 +8,8 @@ import json
 import numpy as np
 import pytest
 
+from ldbench.harness import spec
 from ldbench.tests import tiny
-
-CELLS = ("crit250_vcf.cli", "crit250_vcf.session")
 
 
 @pytest.fixture(scope="module")
@@ -19,12 +18,11 @@ def root(tmp_path_factory):
 
 
 def _cell_metrics(section: str, cell: str) -> set:
-    bench = json.loads((tiny.REPO / "BENCHMARK.json").read_text())
-    return {m["name"] for m in bench[section]
+    return {m["name"] for m in tiny.bench()[section]
             if cell in m.get("workloads", [cell])}
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", tiny.cells())
 def test_cell_runs_correct_with_the_contract_keys(root, cell):
     rc, out, err = tiny.run_subprocess(root, cell, seed=2**31 + 11,
                                        seconds=1.0)
@@ -43,7 +41,7 @@ def test_cell_runs_correct_with_the_contract_keys(root, cell):
                for line in tail)
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", tiny.cells())
 def test_traced_run_reads_its_layers(root, cell):
     rc, out, err = tiny.run_subprocess(root, cell, seed=5, seconds=1.0,
                                        trace=1)
@@ -54,32 +52,38 @@ def test_traced_run_reads_its_layers(root, cell):
     want = _cell_metrics("per_layer", cell)
     # On the CPU no reader of the device finds anything to read, and none
     # reports a number for it.
-    device_only = {"ld_majmin_roofline", "device_idle_pct.cli",
-                   "device_idle_pct.session"}
+    device_only = tiny.device_only()
     got = set(res["metrics"])
     assert not got & device_only
-    if cell.endswith(".cli"):
+    if cell in tiny.cells("cli"):
         assert got == want - device_only
     else:
         # A query kind that the short window did not reach has no mean.
         assert got <= want - device_only and got
 
 
-def test_seed_fixes_the_inputs(root):
-    from pathlib import Path
+def _generate(root, config: str, seed: int) -> dict:
+    entry = [c for c in tiny.bench(root)["configs"] if c["name"] == config][0]
+    cfg = json.loads((root / entry["file"]).read_text())
+    gen = spec.load_module(spec.find(root, "generators", cfg["generator"],
+                                     ".py"))
+    return gen.generate(cfg, seed, "cpu")
 
-    from ldbench.harness import spec
 
-    cell = spec.load_cell(Path(root), "crit250_vcf.cli")
-    gen = spec.load_module(spec.find(Path(root), "generators",
-                                     cell.config["generator"], ".py"))
-    a = gen.generate(cell.config, 2**31 + 5, "cpu")
-    b = gen.generate(cell.config, 2**31 + 5, "cpu")
-    c = gen.generate(cell.config, 2**31 + 6, "cpu")
+@pytest.mark.parametrize("config", tiny.configs())
+def test_seed_fixes_the_inputs(root, config):
+    a = _generate(root, config, 2**31 + 5)
+    b = _generate(root, config, 2**31 + 5)
+    c = _generate(root, config, 2**31 + 6)
     assert (a["codes"] == b["codes"]).all()
+    assert (a["positions"] == b["positions"]).all()
     assert (a["codes"] != c["codes"]).any()
+
+
+def test_criterion_sites_keep_the_bench_proportions(root):
     # The criterion bench's cells: major, minor or missing, about 60 / 30 /
     # 10 %.
+    a = _generate(root, "crit250_vcf", 2**31 + 5)
     assert set(np.unique(a["codes"])) == {0, 1, 4}
     assert abs((a["codes"] == 4).mean() - 0.1) < 0.01
 

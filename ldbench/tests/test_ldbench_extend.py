@@ -14,8 +14,8 @@ def test_new_config_mix_and_metric_as_files(tmp_path):
     lb = root / "ldbench"
     cfg = json.loads((tiny.REPO / "ldbench/configs/crit250_vcf.json")
                      .read_text())
-    cfg.update(tiny.TINY["crit250_vcf"], name="cohort_small", n_sites=2200,
-               major_frac=0.7)
+    cfg.update(tiny.tiny_size(tiny.REPO, "crit250_vcf"), name="cohort_small",
+               n_sites=2200, major_frac=0.7)
     (lb / "configs" / "cohort_small.json").write_text(json.dumps(cfg))
     (lb / "traffic").mkdir()
     mix = json.loads((tiny.REPO / "ldbench/traffic/cli.json").read_text())

@@ -1,7 +1,12 @@
 """A root with the benchmark's cells at a tiny size, for the CPU tests: the
 repository's ``BENCHMARK.json`` with each configuration file replaced by a
-copy whose sizes are cut (S stays above 2,048, where the CLI runs the
-tiled session and its kernels' plain versions)."""
+copy whose sizes are cut to its ``tiny/<config>.json``.
+
+Every part a test reads is declared in files: the cells in
+``BENCHMARK.json``, each configuration's CPU size in ``tiny/``, so that a
+configuration and its cells join the tests by adding files and appending
+entries.
+"""
 
 from __future__ import annotations
 
@@ -13,27 +18,65 @@ import subprocess
 import sys
 from pathlib import Path
 
+from ldbench.harness import spec
+
 REPO = Path(__file__).resolve().parents[2]
 
-TINY = {
-    # 120 sequences: independent sites leave some hundreds of chance pairs
-    # above r2 0.1 among 2,100 sites.
-    "crit250_vcf": {"n_seqs": 120, "n_sites": 2100},
-}
+
+def bench(root: Path = REPO) -> dict:
+    return json.loads((root / "BENCHMARK.json").read_text())
+
+
+def configs(root: Path = REPO) -> list[str]:
+    return [c["name"] for c in bench(root)["configs"]]
+
+
+def cells(loop: str | None = None, root: Path = REPO) -> list[str]:
+    """The names of ``root``'s cells, those whose traffic runs ``loop``
+    (``"cli"`` or ``"session"``) where it is given."""
+    out = []
+    for w in bench(root)["workloads"]:
+        mix = json.loads(spec.find(root, "traffic", w["traffic"],
+                                   ".json").read_text())
+        if loop is None or mix["loop"] == loop:
+            out.append(w["name"])
+    return out
+
+
+def device_only(root: Path = REPO) -> set[str]:
+    """The metrics read from the device trace: a CPU run reports none."""
+    b = bench(root)
+    return {m["name"] for m in b["end_to_end"] + b["per_layer"]
+            if m["source"] == "device_trace"}
+
+
+def tiny_size(root: Path, config: str) -> dict:
+    """The keys ``tiny/<config>.json`` cuts (its ``why`` left out)."""
+    try:
+        path = spec.find(root, "tiny", config, ".json")
+    except FileNotFoundError as e:
+        raise FileNotFoundError(
+            f"configuration {config!r} has no CPU size: add "
+            f"ldbench/tiny/{config}.json ({e})") from None
+    return {k: v for k, v in json.loads(path.read_text()).items()
+            if k != "why"}
 
 
 def make_root(tmp: Path) -> Path:
-    """``tmp`` holding ``BENCHMARK.json`` and tiny copies of the
-    configurations under ``ldbench/configs``; every other part is found
-    beside the harness."""
-    bench = json.loads((REPO / "BENCHMARK.json").read_text())
-    for c in bench["configs"]:
-        cfg = json.loads((REPO / c["file"]).read_text())
-        cfg.update(TINY[c["name"]])
-        dst = tmp / c["file"]
-        dst.parent.mkdir(parents=True, exist_ok=True)
-        dst.write_text(json.dumps(cfg))
-    (tmp / "BENCHMARK.json").write_text(json.dumps(bench))
+    """``tmp`` completed into a root: its ``BENCHMARK.json`` (the
+    repository's where it has none) and a tiny copy of each configuration
+    file, read from ``tmp`` where it holds one and from the repository
+    otherwise.  Every other part is found under ``tmp/ldbench`` first,
+    then beside the harness."""
+    b = bench(tmp if (tmp / "BENCHMARK.json").is_file() else REPO)
+    for c in b["configs"]:
+        src = tmp / c["file"]
+        cfg = json.loads((src if src.is_file() else REPO / c["file"])
+                         .read_text())
+        cfg.update(tiny_size(tmp, c["name"]))
+        src.parent.mkdir(parents=True, exist_ok=True)
+        src.write_text(json.dumps(cfg))
+    (tmp / "BENCHMARK.json").write_text(json.dumps(b))
     return tmp
 
 
