@@ -40,11 +40,29 @@ def _codes(seed: int = 0) -> np.ndarray:
                       size=(N_SEQS, N_SITES))
 
 
-def _session(shards: int = 1) -> LdSession:
-    return LdSession(_codes(), None, np.arange(N_SITES) * 10 + 1,
+def _session(shards: int = 1, codes=None, **cfg) -> LdSession:
+    return LdSession(_codes() if codes is None else codes, None,
+                     np.arange(N_SITES) * 10 + 1,
                      DriverConfig(tile=TILE, r2_threshold=0.1,
-                                  tiles_per_shard_batch=4),
+                                  tiles_per_shard_batch=4, **cfg),
                      devices=["cpu"] * shards)
+
+
+def _hybrid_codes() -> np.ndarray:
+    """UNKNOWN cells in a few sites of one tile: the plan splits into
+    factorized and general tile pairs."""
+    codes = _codes()
+    codes[:2, 350:360] = 5
+    return codes
+
+
+# Sessions by the kernel classes their plans hold.
+SESSIONS = {
+    "majmin": lambda: _session(),
+    "general": lambda: _session(kernel="general"),
+    "hybrid": lambda: _session(codes=_hybrid_codes()),
+    "xla": lambda: _session(engine="xla"),
+}
 
 
 def _write_vcf(path, seed: int = 1) -> None:
@@ -292,3 +310,43 @@ def test_bounded_list_drops_the_oldest(monkeypatch):
                 pass
     assert [s.name for s in profiling.spans()] == ["s2", "s3", "s4"]
     assert profiling.dropped() == 2
+
+
+@pytest.mark.parametrize("kind", list(SESSIONS))
+def test_batch_kernel_spans_name_their_kernel_class(kind):
+    """Each ``batch.kernel`` span names the kernel class that ran its batch
+    (``majmin``, ``general`` or ``xla``), and a general batch its planes P;
+    the tile pairs of each class are those of the session's plan split."""
+    sess = SESSIONS[kind]()
+    _out, spans = _traced(sess.summarize)
+    kernels = [s for s in spans if s.name == "batch.kernel"]
+    assert len(kernels) == sess.n_batches
+    by_class = collections.Counter()
+    for s in kernels:
+        by_class[s.attrs["kernel"]] += s.attrs["tile_pairs"]
+        if s.attrs["kernel"] == "general":
+            assert s.attrs["planes"] == len(sess.planes) == 3
+        else:
+            assert "planes" not in s.attrs
+    assert by_class == {k: n for k, n in sess.phase_tiles.items() if n}
+    want = {"majmin": {"majmin"}, "general": {"general"},
+            "hybrid": {"majmin", "general"}, "xla": {"xla"}}[kind]
+    assert set(by_class) == want
+
+
+@pytest.mark.parametrize("kind", list(SESSIONS))
+def test_upload_plan_counts_the_split(kind):
+    """The constructor's ``upload.plan`` span counts the tile pairs of the
+    hybrid split, factorized and general (and all of them under the XLA
+    engine), which sum to the plan's tile pairs; both are non-zero on an
+    alignment with clean tiles and tiles with UNKNOWN."""
+    sess, spans = _traced(SESSIONS[kind])
+    (plan,) = [s for s in spans if s.name == "upload.plan"
+               and "majmin_tile_pairs" in s.attrs]
+    counts = {k[:-len("_tile_pairs")]: v for k, v in plan.attrs.items()
+              if k.endswith("_tile_pairs")}
+    assert sum(counts.values()) == sess.plan.n_tiles
+    assert counts == {k: v for k, v in sess.phase_tiles.items()
+                      if k != "xla" or kind == "xla"}
+    if kind == "hybrid":
+        assert counts["majmin"] > 0 and counts["general"] > 0

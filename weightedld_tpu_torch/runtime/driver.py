@@ -102,7 +102,8 @@ same bytes at the same k.
 Spans (:func:`runtime.profiling.span`, recorded while a profiler records
 the process): ``upload.scan``, ``.pack``, ``.plan``, ``.copy``,
 ``.weights``, ``.planes`` and ``.sync`` in the constructor;
-``batch.kernel`` and ``batch.reduce`` (with device times),
+``batch.kernel`` (with its kernel class, and a general batch's planes)
+and ``batch.reduce`` (with device times),
 ``batch.wait``, ``batch.read`` (one per shard slice, with its compaction
 path) and ``batch.gather`` in the batch loops; ``prune.sweep``; and a
 ``query.<method>`` span around each public query method (``prune``'s
@@ -703,7 +704,7 @@ class LdSession:
             # The site map is validated before any plan or upload work; its
             # device copy serves the bp mask and ld_decay.
             self._site_map_dev("--max-distance-bp")
-        with span("upload.plan"):
+        with span("upload.plan") as plan_sp:
             if self.windowed_packed:
                 self.plan = plan_tiles_permuted(
                     self.n_sites, tile, cfg.max_site_distance,
@@ -749,6 +750,11 @@ class LdSession:
             else:
                 parts = [("general", np.ones(self.plan.n_tiles, bool))]
             kernels = {kern for kern, _sel in parts}
+            if plan_sp:
+                counts = {"majmin_tile_pairs": 0, "general_tile_pairs": 0}
+                counts.update({f"{kern}_tile_pairs": int(sel.sum())
+                               for kern, sel in parts})
+                plan_sp.set(**counts)
         # The permuted site-index window reads each pair's original indices
         # (driver.py:755-761); padding sites are dropped by keep anyway.
         self._orig_dev = None
@@ -1046,8 +1052,12 @@ class LdSession:
         with span("batch.kernel", device=self.devices[shard]) as sp:
             st = fn(*args, ti, tj, em, **kw)
         if sp:
+            kern = self._locate(b)[0].kernel
             tiles = int(self.batch_tiles_host(b, shard)[2].sum())
-            sp.set(tile_pairs=tiles, pairs=tiles * self.cfg.tile ** 2)
+            sp.set(kernel=kern, tile_pairs=tiles,
+                   pairs=tiles * self.cfg.tile ** 2)
+            if kern == "general":
+                sp.set(planes=len(self.planes))
         self._mask_pairs(st.keep, ti, tj, shard)
         return st, ti, tj
 
