@@ -493,6 +493,64 @@ def test_analytics_equal_on_cpu_and_card(cuda_device, kernel, weight_quant):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shards", (1, 2))
+def test_margin_packed_session_bit_equal_on_card(cuda_device, shards):
+    """An alignment with UNKNOWN cells at every site, its margin-stable
+    sites packed first (``packing_permutation``'s margin split), so its
+    stable tile pairs run the factorized kernel and the rest the general
+    one.  Every kept pair's r2, D and D' bit-equal to a
+    ``kernel="general"`` session fed the sites in the packed order (the
+    factorized cells are the general kernel's), and against the general
+    session in input order the same records, within the
+    ``hiv_pol_iupac.session`` cell's limits where a pair's sites swap
+    sides.  Two shards take two cards where two are visible, else share
+    ``cuda:0``."""
+    from .test_torch_margin_packing import (
+        N_SEQS,
+        SITE_MAP,
+        TILE,
+        all_dirty,
+        assert_within_limits,
+        unlay,
+    )
+
+    aln = all_dirty()
+    w = (np.random.default_rng(15).random(N_SEQS) + 0.05).astype(np.float32)
+    devs = ([torch.device("cuda", i % torch.cuda.device_count())
+             for i in range(shards)])
+
+    def run(codes, sm, kernel):
+        sess = LdSession(codes, w, sm,
+                         DriverConfig(tile=TILE, r2_threshold=0.05,
+                                      tiles_per_shard_batch=2, kernel=kernel),
+                         devices=devs)
+        recs = {}
+        for _b, r in sess.stream():
+            for a, b, *vals in zip(r.pos_a.tolist(), r.pos_b.tolist(),
+                                   r.d.tolist(), r.d_prime.tolist(),
+                                   r.r2.tolist()):
+                recs[min(a, b), max(a, b)] = vals
+        return sess, recs, sess.matrices()
+
+    sess, recs, mats = run(aln, SITE_MAP, "auto")
+    perm = sess.site_perm
+    assert perm is not None
+    assert sess.phase_tiles["majmin"] > 0 < sess.phase_tiles["general"]
+    _s, laid_recs, laid = run(aln[:, perm], SITE_MAP[perm], "general")
+    _s, g_recs, g_mats = run(aln, SITE_MAP, "general")
+    laid = unlay(laid, perm)
+    keep = mats["keep"]
+    assert len(recs) > 100 and recs == laid_recs
+    np.testing.assert_array_equal(keep, laid["keep"])
+    np.testing.assert_array_equal(keep, g_mats["keep"])
+    for f in ("d", "d_prime", "r2"):
+        assert mats[f][keep].tobytes() == laid[f][keep].tobytes(), f
+    assert recs.keys() == g_recs.keys()
+    assert_within_limits(*(mats[f][keep] for f in ("d", "d_prime", "r2")),
+                         *(g_mats[f][keep] for f in ("d", "d_prime", "r2")))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("unit", (False, True))
 def test_xla_engine_on_card_equals_cpu(cuda_device, unit):
     """``engine="xla"`` on the card against the CPU (cuBLAS against the CPU

@@ -530,12 +530,12 @@ def packing_permutation(site_counts: np.ndarray, n_seqs: int,
                         cfg: DriverConfig | None = None,
                         site_map: np.ndarray | None = None,
                         ) -> np.ndarray | None:
-    """The unsafe-site packing (``driver.py:457-487``); None when every
-    site or no site is dirty (has an UNKNOWN cell), the order does not
-    change, or a windowed packing does not pay.  Dirty sites are the only
-    ones that can make a tile pair unsafe for the factorized kernel, so
-    packing them into the trailing tiles leaves every clean x clean tile
-    pair — the bulk of the triangle — on the factorized kernel.
+    """The unsafe-site packing (``driver.py:457-487``); None when no site is
+    dirty (has an UNKNOWN cell), the order does not change, or a windowed
+    packing does not pay.  Dirty sites are the only ones that can make a
+    tile pair unsafe for the factorized kernel, so packing them into the
+    trailing tiles leaves every clean x clean tile pair — the bulk of the
+    triangle — on the factorized kernel.
 
     Without a window in ``cfg``: clean sites by descending stability
     margin, then dirty sites by ascending UNKNOWN count, both stable, which
@@ -543,15 +543,32 @@ def packing_permutation(site_counts: np.ndarray, n_seqs: int,
     a window: the order-preserving class split, clean sites then dirty
     sites, each in input order, so the clean block keeps its ascending
     positions and its band; gated by :func:`_windowed_packing_pays` on
-    the input-order ``site_map``."""
+    the input-order ``site_map``.
+
+    When every site is dirty (JAX returns None): the same order-preserving
+    split by margin, the stable sites (``margin > u.max()``: any tile of
+    them is factorized-exact against every tile, by
+    :func:`majmin_tile_margins`'s test) then the rest, so the tile pairs
+    of two stable tiles leave the general kernel.  Taken only without a
+    window (the order would break the band the window's plan prunes by)
+    and when the stable sites fill at least one tile of ``cfg.tile``;
+    else None, as no tile pair would turn safe."""
     margin, u = majmin_site_margins(site_counts, n_seqs)
     bad = u > 0
-    if not bad.any() or bad.all():
+    if not bad.any():
         return None
     clean = np.flatnonzero(~bad)
     dirty = np.flatnonzero(bad)
-    if cfg is not None and (cfg.max_site_distance is not None
-                            or cfg.max_bp_distance is not None):
+    windowed = cfg is not None and (cfg.max_site_distance is not None
+                                    or cfg.max_bp_distance is not None)
+    if bad.all():
+        stable = margin > u.max()
+        tile = resolve_tile(cfg.tile if cfg is not None else None)
+        if windowed or int(stable.sum()) < tile:
+            return None
+        perm = np.concatenate([np.flatnonzero(stable),
+                               np.flatnonzero(~stable)])
+    elif windowed:
         if not _windowed_packing_pays(bad, cfg, np.asarray(site_map),
                                       len(bad)):
             return None
@@ -675,23 +692,33 @@ class LdSession:
         # (after the upload), the site map and the histogram here.  A cross
         # session never packs: its layout order is the rectangle.  Unlike
         # the JAX session, a streamed (SiteMajorCodes) one packs too, so
-        # its records equal the standard session's.
+        # its records equal the standard session's, and so does one whose
+        # every site is dirty (the margin split of packing_permutation).
         self.site_perm = None
         self.windowed_packed = False
         self._sm_orig_nondecr = None
         if (not majmin and site_counts is not None
                 and cfg.cross_split is None):
-            with span("upload.pack"):
+            with span("upload.pack") as pack_sp:
                 perm = packing_permutation(site_counts, self.n_seqs, cfg,
                                            site_map)
+                windowed = (cfg.max_site_distance is not None
+                            or cfg.max_bp_distance is not None)
+                if pack_sp:
+                    margin, u = majmin_site_margins(site_counts, self.n_seqs)
+                    pack_sp.set(
+                        order=("none" if perm is None
+                               else "windowed" if windowed
+                               else "margin_split" if (u > 0).all()
+                               else "clean_dirty"),
+                        stable_sites=int((margin > u.max()).sum()))
             if perm is not None:
                 self._sm_orig_nondecr = not bool((np.diff(site_map) < 0)
                                                  .any())
                 site_map = site_map[perm]
                 site_counts = site_counts[perm]
                 self.site_perm = perm
-                self.windowed_packed = (cfg.max_site_distance is not None
-                                        or cfg.max_bp_distance is not None)
+                self.windowed_packed = windowed
 
         tile = resolve_tile(cfg.tile, self.engine)
         seq_chunk = resolve_seq_chunk(cfg.seq_chunk, self.n_seqs)
