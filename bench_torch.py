@@ -170,32 +170,11 @@ def _launch_counts() -> dict:
 
 
 def entries(session) -> dict:
-    """Which kernel entry each phase of ``session``'s plan runs, from its
-    kernel attributes: the factorized kernel's preplaned
-    (``ld_majmin_planes``) or codes (``ld_majmin_codes``) entry, or the
-    general kernel's, with its weight mode, tile and batches."""
-    kw = session.kernel_kw
-    if kw["unit_weights"]:
-        mode = "unit"
-    elif kw["exact_weights"]:
-        mode = "bf16_exact"
-    else:
-        mode = kw["wquant"] or "split_bf16"
-    suffix = {"lo_int8": "_lo_int8", "split_bf16": "_split_bf16",
-              "bf16_exact": "_bf16_exact"}.get(mode, "")
-    names = []
-    for kern, n_tiles in session.phase_tiles.items():
-        if not n_tiles:
-            continue
-        if kern == "majmin":
-            names.append(("ld_majmin_planes" if session.preplaned
-                          else "ld_majmin_codes") + suffix)
-        elif session.general_preplaned:
-            names.append("ld_general_planes" + suffix)
-        else:
-            names.append("ld_general_unit" if mode == "unit"
-                         else "ld_general" + suffix)
-    return {"entries": names, "weights": mode, "tile": session.cfg.tile,
+    """Which kernel entry each phase of ``session``'s plan runs, as its
+    layout names them (``LdSession.layout``, the launch counters' names),
+    with its weight mode, tile and batches."""
+    return {"entries": [ph.entry for ph in session.layout.phases],
+            "weights": session.layout.weight_mode, "tile": session.cfg.tile,
             "tiles_per_batch": session.cfg.tiles_per_shard_batch,
             "n_batches": session.n_batches}
 

@@ -16,6 +16,10 @@ symmetric in its two sites (the plain versions and the card's kernels
 alike); those values are held within the ``hiv_pol_iupac.session`` cell's
 limits.  The card's twin is
 ``tests/test_torch_cuda.py::test_margin_packed_session_bit_equal_on_card``.
+
+``session_layout`` alone, with no upload, is held to what the built
+session reports and launches, over the packings, windows, engines,
+kernels, weight modes and preplaned settings.
 """
 
 from __future__ import annotations
@@ -336,3 +340,104 @@ def test_partly_dirty_keeps_the_clean_dirty_order():
     np.testing.assert_array_equal(
         packing_permutation(counts, N_SEQS, win, SITE_MAP),
         np.concatenate([cl, di]))
+
+
+def _partly_dirty(lo: int = 10, hi: int = 180) -> np.ndarray:
+    """:func:`all_dirty` with the UNKNOWN cells of sites ``lo:hi`` made the
+    first base."""
+    aln = all_dirty()
+    aln[:, lo:hi] = np.where(aln[:, lo:hi] == 5, 0, aln[:, lo:hi])
+    return aln
+
+
+W_RAND = (np.random.default_rng(4).random(N_SEQS) + 0.05).astype(np.float32)
+W_UNIT = np.ones(N_SEQS, np.float32)
+W_EXACT = ((np.arange(N_SEQS) % 4 + 1) / 4).astype(np.float32)
+# case: (input, DriverConfig fields, weights, packing order, weight mode)
+LAYOUT_CASES = {
+    "clean": (lambda: _partly_dirty(0, N_SITES), {}, W_RAND, "none",
+              "int8x3"),
+    "partly-dirty": (_partly_dirty, {}, W_RAND, "clean_dirty", "int8x3"),
+    "all-dirty": (all_dirty, {}, W_RAND, "margin_split", "int8x3"),
+    "windowed": (_partly_dirty, {"max_site_distance": N_SITES}, W_RAND,
+                 "windowed", "int8x3"),
+    "cross": (_partly_dirty, {"cross_split": N_SITES // 2}, W_RAND, "none",
+              "int8x3"),
+    "general": (all_dirty, {"kernel": "general"}, W_RAND, "none", "int8x3"),
+    "xla": (all_dirty, {"engine": "xla"}, W_RAND, "none", None),
+    **{f"quant-{wq}": (_partly_dirty, {"weight_quant": wq}, W_RAND,
+                       "clean_dirty", "int8x3" if wq == "none" else wq)
+       for wq in ("none", "split_bf16", "lo_int8", "int8", "int8x3")},
+    "unit": (all_dirty, {"weight_quant": "int8"}, W_UNIT, "margin_split",
+             "unit"),
+    "bf16-exact": (_partly_dirty, {}, W_EXACT, "clean_dirty", "bf16_exact"),
+    "preplaned-on": (_partly_dirty, {"preplaned": "on"}, W_RAND,
+                     "clean_dirty", "int8x3"),
+    "preplaned-off": (all_dirty, {"preplaned": "off"}, W_RAND,
+                      "margin_split", "int8x3"),
+    "general-on": (_partly_dirty, {"kernel": "general", "preplaned": "on"},
+                   W_UNIT, "none", "unit"),
+}
+WEIGHT_ROWS = {"unit": 1, "bf16_exact": 1, "split_bf16": 1, "lo_int8": 3,
+               "int8": 4, "int8x3": 6}
+
+
+def _launched_as(fn, kw) -> str:
+    """The launch-counter name of the wrapper call ``fn(**kw)``, as the
+    wrappers count it."""
+    from weightedld_tpu_torch.ops import cuda_ld as K
+
+    if fn.__name__ == "tile_stats_batch":
+        return "tile_stats_batch"
+    kind = K.weight_kind(kw["exact_weights"], kw["unit_weights"],
+                         kw["wquant"])
+    if fn.__name__ == "tile_stats_general":
+        entry = ("ld_general_planes" if kw["preplaned"] else
+                 "ld_general_unit" if kind == "unit" else "ld_general")
+    else:
+        entry = ("ld_majmin_planes" if fn.__name__.endswith("_pre")
+                 else "ld_majmin_codes")
+    return K.launch_name(entry, kind)
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUT_CASES))
+def test_layout_alone_names_what_the_session_runs(case):
+    """``session_layout`` and ``with_weights`` alone, with no upload, give
+    the packing, the split, each phase's entry and the weight mode that the
+    built session reports and calls its kernels with."""
+    import torch
+
+    from weightedld_tpu_torch.runtime.driver import session_layout
+
+    make, fields, w, order, mode = LAYOUT_CASES[case]
+    aln = make()
+    cfg = DriverConfig(tile=TILE, r2_threshold=0.05,
+                       tiles_per_shard_batch=4, **fields)
+    cpu = torch.device("cpu")
+    lay = session_layout(aln, lambda: site_histogram_host(aln), N_SEQS,
+                         N_SITES, SITE_MAP, cfg, cpu).with_weights(w, cpu)
+    sess = LdSession(aln, w, SITE_MAP, cfg, device="cpu")
+    for got, want in ((lay.site_perm, sess.site_perm),
+                      (lay.hybrid_safe, sess.hybrid_safe)):
+        assert (got is None) == (want is None)
+        np.testing.assert_array_equal(got, want)
+    assert lay.phase_tiles == sess.phase_tiles
+    assert (lay.preplaned, lay.general_preplaned) == (
+        sess.preplaned, sess.general_preplaned)
+    assert (lay.order, lay.weight_mode) == (order, mode)
+    assert lay.windowed_packed == sess.windowed_packed == (
+        order == "windowed")
+    if mode is not None:
+        assert sess.weights_dev.shape[0] == WEIGHT_ROWS[mode]
+    first = 0
+    for ph in lay.phases:
+        fn, _plain, _args, kw = sess.batch_kernel(first)
+        assert ph.entry == _launched_as(fn, kw), (ph.kernel, ph.entry)
+        for lb in range(ph.n_batches):
+            sl = slice(lb * ph.k, (lb + 1) * ph.k)
+            want = (ph.tile_i_host[0, sl], ph.tile_j_host[0, sl],
+                    ph.emit_host[0, sl])
+            for got_t, want_t in zip(sess.batch_tiles_host(first + lb), want):
+                np.testing.assert_array_equal(got_t, want_t)
+        first += ph.n_batches
+    assert first == sess.n_batches

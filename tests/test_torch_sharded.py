@@ -241,7 +241,7 @@ def test_windowed_shards_carry_uneven_emit_counts(g):
     """The band plan hands the shards different real-tile counts, and the
     session's records are those of its one-shard run, as a set."""
     sess = _session("win", g)
-    per_shard = sess._phases[0].emit_host.sum(axis=1)
+    per_shard = sess.layout.phases[0].emit_host.sum(axis=1)
     assert len(set(per_shard.tolist())) > 1, per_shard
     assert per_shard.sum() == sess.plan.n_tiles
     rows = {(int(a), int(b), float(r)) for _b, rec in sess.stream()

@@ -253,11 +253,8 @@ def tile_stats_general(src, weights, tile_i, tile_j, emit, *, tile: int,
     if device.type == "cpu":
         return tile_stats_general_plain(src, weights, tile_i, tile_j, emit,
                                         **kw)
-    if preplaned:
-        name = "ld_general_planes"
-    else:
-        name = "ld_general_unit" if kind == "unit" else "ld_general"
     entry = "ld_general_unit" if kind == "unit" else "ld_general"
+    name = "ld_general_planes" if preplaned else entry
     return _launch(name, entry, None if preplaned else src,
                    src if preplaned else None, weights, tile_i, tile_j, emit,
                    kind=kind, nlev=nlev, tile=tile, n_sites=n_sites,

@@ -40,11 +40,23 @@ from ..core.paircore import PairStats
 DEFAULT_SEQ_CHUNK = 512
 ALL_PLANES = (0, 1, 2, 3, 4)
 
+# The weight modes of the kernels' weighted passes, one vocabulary (what a
+# session resolves, :func:`resolve_weight_mode`): each mode's weight kind
+# (:func:`weight_kind`), the int8 cascade levels of its packed weights (0:
+# float rows) and the wrappers' JAX-shaped keywords.
+WEIGHT_MODES = {
+    mode: (kind, levels, dict(exact_weights=kind in ("unit", "exact"),
+                              unit_weights=kind == "unit",
+                              wquant=mode if kind in ("int", "lo") else ""))
+    for mode, kind, levels in (
+        ("unit", "unit", 0), ("bf16_exact", "exact", 0),
+        ("split_bf16", "split", 0), ("lo_int8", "lo", 0), ("int8", "int", 2),
+        ("int8x3", "int", 3))}
 # Launch counts per kernel entry point, the float weight modes under names of
 # their own: each wrapper adds one where it launches its kernel and nowhere
 # else.
-_MODE_SUFFIX = {"lo": "_lo_int8", "split": "_split_bf16",
-                "exact": "_bf16_exact"}
+_MODE_SUFFIX = {WEIGHT_MODES[mode][0]: "_" + mode
+                for mode in ("lo_int8", "split_bf16", "bf16_exact")}
 launches = {entry + suffix: 0
             for entry in ("ld_majmin_codes", "ld_majmin_planes")
             for suffix in ("", *_MODE_SUFFIX.values())}
@@ -153,6 +165,28 @@ def weights_bf16_exact(weights: np.ndarray) -> bool:
     round trip done by ``torch.bfloat16``."""
     w = torch.from_numpy(np.ascontiguousarray(weights, dtype=np.float32))
     return bool((w.to(torch.bfloat16).to(torch.float32) == w).all())
+
+
+def resolve_weight_mode(weights: np.ndarray, weight_quant: str) -> str:
+    """The weight mode (:data:`WEIGHT_MODES`) a session runs its ``float32``
+    weights in, with JAX's precedence: unit weights, then bf16-exact ones,
+    then ``weight_quant`` (``"none"`` is the int8x3 cascade)."""
+    if bool((weights == 1.0).all()):
+        return "unit"
+    if weights_bf16_exact(weights):
+        return "bf16_exact"
+    return "int8x3" if weight_quant == "none" else weight_quant
+
+
+def pack_weights(weights: np.ndarray, mode: str,
+                 seq_chunk: int = DEFAULT_SEQ_CHUNK) -> np.ndarray:
+    """The weight rows the kernels read in weight mode ``mode``."""
+    kind, levels, _kw = WEIGHT_MODES[mode]
+    if levels:
+        return pad_weights_int8(weights, seq_chunk, levels=levels)
+    if kind == "lo":
+        return pad_weights_lo_int8(weights, seq_chunk)
+    return pad_weights(weights, seq_chunk)
 
 
 def detect_planes_unknown(alignment: np.ndarray) -> tuple:
@@ -331,17 +365,17 @@ def pair_algebra(n_mm, n_md, n_dm, n_dd, keep):
 
 
 def weight_kind(exact_weights: bool, unit_weights: bool, wquant: str) -> str:
-    """The weight kind of the kernels' passes, with JAX's precedence: unit,
-    then bf16-exact, then the int8 cascades (``"int"``), lo_int8 (``"lo"``)
-    and split_bf16 (``"split"``, ``wquant=""``)."""
+    """The weight kind of the kernels' passes (:data:`WEIGHT_MODES`), with
+    JAX's precedence: unit, then bf16-exact, then the int8 cascades
+    (``"int"``), lo_int8 (``"lo"``) and split_bf16 (``"split"``,
+    ``wquant=""``)."""
     if unit_weights:
         return "unit"
     if exact_weights:
         return "exact"
-    kinds = {"int8": "int", "int8x3": "int", "": "split", "lo_int8": "lo"}
-    if wquant not in kinds:
+    if wquant not in ("", "lo_int8", "int8", "int8x3"):
         raise ValueError(f"unknown wquant {wquant!r}")
-    return kinds[wquant]
+    return WEIGHT_MODES[wquant or "split_bf16"][0]
 
 
 def _weight_mode(weights: torch.Tensor, exact_weights: bool,
@@ -353,7 +387,7 @@ def _weight_mode(weights: torch.Tensor, exact_weights: bool,
     nlev, rows = {"unit": (1, 1), "exact": (0, 1), "split": (0, 1),
                   "lo": (1, 3)}.get(kind, (0, 0))
     if kind == "int":
-        nlev = 2 if wquant == "int8" else 3
+        nlev = WEIGHT_MODES[wquant][1]
         rows = 2 * nlev
     if weights.dim() != 2 or weights.shape[0] != rows:
         raise ValueError(

@@ -100,8 +100,9 @@ does between the CPU and a TPU), so two runs over G > 1 shards write the
 same bytes at the same k.
 
 Spans (:func:`runtime.profiling.span`, recorded while a profiler records
-the process): ``upload.scan``, ``.pack``, ``.plan``, ``.copy``,
-``.weights``, ``.planes`` and ``.sync`` in the constructor;
+the process): ``upload.scan``, ``.pack``, ``.plan`` (the host's
+decisions, :func:`session_layout`), ``.copy``, ``.weights``, ``.planes``
+and ``.sync`` in the constructor;
 ``batch.kernel`` (with its kernel class, and a general batch's planes)
 and ``batch.reduce`` (with device times),
 ``batch.wait``, ``batch.read`` (one per shard slice, with its compaction
@@ -144,20 +145,20 @@ from ..ops.cuda_general import (
 from ..ops.cuda_ld import (
     build_majmin_planes,
     build_majmin_xq,
+    WEIGHT_MODES,
     detect_planes_unknown,
+    launch_name,
     majmin_safe_with_unknown,
     majmin_site_aux,
     majmin_site_margins,
     majmin_tile_margins,
+    pack_weights,
     pad_alignment_site_major,
-    pad_weights,
-    pad_weights_int8,
-    pad_weights_lo_int8,
+    resolve_weight_mode,
     tile_stats_majmin,
     tile_stats_majmin_plain,
     tile_stats_majmin_pre,
     tile_stats_majmin_pre_plain,
-    weights_bf16_exact,
 )
 from ..parallel.analytics import decay_batch, hist_batch, topk_batch
 from ..parallel.multihost import (
@@ -176,7 +177,13 @@ from ..parallel.sharded import (
     merge_topk,
     replicate,
 )
-from ..parallel.triangle import cdiv, plan_tiles, plan_tiles_permuted, stripe
+from ..parallel.triangle import (
+    TilePlan,
+    cdiv,
+    plan_tiles,
+    plan_tiles_permuted,
+    stripe,
+)
 from .profiling import span, spanned
 
 log = logging.getLogger("weightedld_tpu_torch")
@@ -306,25 +313,24 @@ class Progress:
 
 
 @dataclass(frozen=True)
-class _Phase:
-    """One kernel's share of the plan, striped and uploaded once:
-    ``kernel`` is ``"majmin"`` or ``"general"``, ``n_tiles`` its real tile
-    pairs, ``k`` its tiles per shard and batch.  ``tile_i_host``,
-    ``tile_j_host`` and ``emit_host`` are the ``[G, n_batches * k]`` plan
-    tables of every shard (``matrices`` reads them);
-    ``tile_i``, ``tile_j`` and ``emit`` hold one ``[n_batches * k]``
-    tensor per local shard, on its device."""
+class PhaseLayout:
+    """One kernel's share of a session's plan: ``kernel`` is ``"majmin"``,
+    ``"general"`` or ``"xla"``, ``sel`` the plan's tile pairs it runs
+    (``n_tiles`` of them), ``k`` its tiles per shard and batch.
+    ``tile_i_host``, ``tile_j_host`` and ``emit_host`` are the ``[G,
+    n_batches * k]`` plan tables of every shard (``matrices`` reads them).
+    ``entry`` names the kernel entry that runs it as the launch counters
+    do (``ops.cuda_ld.launch_name``; empty until the weights are known)."""
 
     kernel: str
+    sel: np.ndarray
     n_tiles: int
     k: int
     n_batches: int
     tile_i_host: np.ndarray
     tile_j_host: np.ndarray
     emit_host: np.ndarray
-    tile_i: list
-    tile_j: list
-    emit: list
+    entry: str
 
 
 def validate_decay_edges(edges) -> tuple:
@@ -553,10 +559,18 @@ def packing_permutation(site_counts: np.ndarray, n_seqs: int,
     window (the order would break the band the window's plan prunes by)
     and when the stable sites fill at least one tile of ``cfg.tile``;
     else None, as no tile pair would turn safe."""
-    margin, u = majmin_site_margins(site_counts, n_seqs)
+    return _packing(*majmin_site_margins(site_counts, n_seqs), cfg,
+                    site_map)[0]
+
+
+def _packing(margin: np.ndarray, u: np.ndarray, cfg: DriverConfig | None,
+             site_map) -> tuple[np.ndarray | None, str]:
+    """:func:`packing_permutation` from the per-site ``(margin, u)`` of
+    :func:`majmin_site_margins`, with the order it took: ``none``,
+    ``margin_split``, ``windowed`` or ``clean_dirty``."""
     bad = u > 0
     if not bad.any():
-        return None
+        return None, "none"
     clean = np.flatnonzero(~bad)
     dirty = np.flatnonzero(bad)
     windowed = cfg is not None and (cfg.max_site_distance is not None
@@ -565,21 +579,209 @@ def packing_permutation(site_counts: np.ndarray, n_seqs: int,
         stable = margin > u.max()
         tile = resolve_tile(cfg.tile if cfg is not None else None)
         if windowed or int(stable.sum()) < tile:
-            return None
-        perm = np.concatenate([np.flatnonzero(stable),
-                               np.flatnonzero(~stable)])
+            return None, "none"
+        perm, order = np.concatenate([np.flatnonzero(stable),
+                                      np.flatnonzero(~stable)]), "margin_split"
     elif windowed:
         if not _windowed_packing_pays(bad, cfg, np.asarray(site_map),
                                       len(bad)):
-            return None
-        perm = np.concatenate([clean, dirty])
+            return None, "none"
+        perm, order = np.concatenate([clean, dirty]), "windowed"
     else:
-        perm = np.concatenate([
+        perm, order = np.concatenate([
             clean[np.argsort(-margin[clean], kind="stable")],
-            dirty[np.argsort(u[dirty], kind="stable")]])
+            dirty[np.argsort(u[dirty], kind="stable")]]), "clean_dirty"
     if np.array_equal(perm, np.arange(len(perm))):
-        return None
-    return perm
+        return None, "none"
+    return perm, order
+
+
+@dataclass(frozen=True)
+class SessionLayout:
+    """What a session runs (:func:`session_layout`; the weight mode and the
+    phases' entries once the weights are known, :meth:`with_weights`).
+    ``cfg`` has its tile, seq chunk and tiles per batch resolved; ``planes``
+    are the general kernel's; ``site_perm`` (layout index -> input site,
+    None for the input's order), ``order`` and ``stable_sites`` are the
+    packing's, and ``site_map`` and ``site_counts`` (None where no decision
+    read them) are in its order; ``hybrid_safe`` marks the factorized-exact
+    tile pairs of a hybrid split.  Tile pair p runs the ``entry`` of the
+    phase whose ``sel[p]`` is set, in ``weight_mode`` (a key of
+    ``ops.cuda_ld.WEIGHT_MODES``; None under the XLA engine)."""
+
+    engine: str
+    cfg: DriverConfig
+    n_pad: int
+    planes: tuple | None
+    site_perm: np.ndarray | None
+    order: str
+    stable_sites: int
+    windowed_packed: bool
+    site_map: np.ndarray
+    site_counts: np.ndarray | None
+    plan: TilePlan
+    hybrid_safe: np.ndarray | None
+    phases: tuple
+    weight_mode: str | None = None
+    preplaned: bool = False
+    general_preplaned: bool = False
+
+    @property
+    def phase_tiles(self) -> dict[str, int]:
+        """Real tile pairs per kernel: ``{"majmin": n, "general": m}``, and
+        ``"xla"``, all of them, for an XLA-engine session."""
+        return {"majmin": 0, "general": 0,
+                **{p.kernel: p.n_tiles for p in self.phases}}
+
+    @property
+    def plan_kind(self) -> str:
+        """The kernels the plan runs: ``majmin``, ``general``, ``hybrid``
+        (factorized, then general) or ``xla`` (the XLA tile engine)."""
+        return "hybrid" if len(self.phases) == 2 else self.phases[0].kernel
+
+    def with_weights(self, weights: np.ndarray,
+                     device: torch.device) -> SessionLayout:
+        """This layout with the weight mode of the float32 ``weights``
+        (:func:`resolve_weight_mode`) and each phase's entry.  The JAX
+        session never preplanes a hybrid phase 0 (driver.py:709), but both
+        factorized entries give the same bits, so phase 0 takes the planes
+        whenever they fit, as a pure factorized session does.  The general
+        kernel's one-hot planes only under "on": JAX never selects them
+        (measured neutral on the TPU, pallas_ld.py:40-41)."""
+        cfg = self.cfg
+        kernels = {p.kernel for p in self.phases}
+        mode = kind = None
+        pre = gpre = False
+        if self.engine == "pallas":
+            mode = resolve_weight_mode(weights, cfg.weight_quant)
+            kind, nlev, _kw = WEIGHT_MODES[mode]
+            mm_bytes = (1 + nlev) * 2 * self.plan.s_pad * self.n_pad
+            pre = "majmin" in kernels and (cfg.preplaned == "on" or (
+                cfg.preplaned == "auto" and auto_preplaned(
+                    cfg.seq_chunk, mm_bytes, plane_budget(device))))
+            gpre = "general" in kernels and cfg.preplaned == "on"
+        entry = {"majmin": "ld_majmin_planes" if pre else "ld_majmin_codes",
+                 "general": ("ld_general_planes" if gpre else
+                             "ld_general_unit" if kind == "unit"
+                             else "ld_general"),
+                 "xla": "tile_stats_batch"}
+        return replace(self, weight_mode=mode, preplaned=pre,
+                       general_preplaned=gpre, phases=tuple(
+                           replace(p, entry=launch_name(entry[p.kernel], kind))
+                           for p in self.phases))
+
+
+def session_layout(valid: np.ndarray, counts: Callable[[], np.ndarray],
+                   n_seqs: int, n_sites: int, site_map: np.ndarray,
+                   cfg: DriverConfig, device: torch.device,
+                   n_shards: int = 1) -> SessionLayout:
+    """What a session over ``valid`` runs (the module's "Which kernel
+    runs"), decided on the host before any upload in the ``upload.scan``,
+    ``.pack`` and ``.plan`` spans.  ``valid`` is the input's valid region
+    (``[N, S]``, or a :class:`SiteMajorCodes` buffer's ``[S, N]``);
+    ``counts()`` gives its ``[S, 5]`` allele counts in input order, called
+    only where a decision reads them.  The XLA engine never scans, packs or
+    splits (JAX decides them under its pallas engine only,
+    driver.py:370-411, :587); a cross session never packs (its order is
+    the rectangle).  Unlike the JAX session, a streamed one packs too, so
+    its records equal the standard session's."""
+    engine = _resolve_engine(cfg.engine)
+    planes, majmin, site_counts = None, False, None
+    if engine == "pallas":
+        with span("upload.scan", cells=n_seqs * n_sites):
+            planes, has_unknown = detect_planes_unknown(valid)
+            if cfg.kernel == "auto":
+                if not has_unknown:
+                    majmin = True
+                else:
+                    site_counts = counts()
+                    majmin = majmin_safe_with_unknown(None, site_counts,
+                                                      n_seqs=n_seqs)
+    site_map = np.asarray(site_map)
+    perm, order, stable = None, "none", 0
+    windowed = (cfg.max_site_distance is not None
+                or cfg.max_bp_distance is not None)
+    if not majmin and site_counts is not None and cfg.cross_split is None:
+        with span("upload.pack") as sp:
+            margin, u = majmin_site_margins(site_counts, n_seqs)
+            perm, order = _packing(margin, u, cfg, site_map)
+            stable = int((margin > u.max()).sum())
+            if sp:
+                sp.set(order=order, stable_sites=stable)
+        if perm is not None:
+            site_map, site_counts = site_map[perm], site_counts[perm]
+    tile = resolve_tile(cfg.tile, engine)
+    seq_chunk = resolve_seq_chunk(cfg.seq_chunk, n_seqs)
+    with span("upload.plan") as sp:
+        if perm is not None and windowed:
+            plan = plan_tiles_permuted(
+                n_sites, tile, cfg.max_site_distance,
+                max_bp_distance=cfg.max_bp_distance, orig_idx=perm,
+                site_map=site_map)
+        else:
+            plan = plan_tiles(
+                n_sites, tile, cfg.max_site_distance,
+                max_bp_distance=cfg.max_bp_distance, site_map=site_map,
+                cross_split=cfg.cross_split)
+        if engine == "xla":
+            k = resolve_xla_tiles_per_batch(
+                cfg.tiles_per_shard_batch, plan.n_tiles, tile, n_seqs,
+                cfg.r2_threshold, device, n_shards)
+        else:
+            k = resolve_tiles_per_batch(cfg.tiles_per_shard_batch,
+                                        plan.n_tiles, tile, cfg.r2_threshold,
+                                        device, n_shards)
+        # The hybrid split: a tile pair is factorized-exact when each
+        # side's margins absorb the other side's UNKNOWN counts
+        # (majmin_tile_margins); clean x clean tile pairs always are.  All
+        # of them safe is weaker than the global test, and still exact.
+        safe = np.full(plan.n_tiles, majmin)
+        if not majmin and site_counts is not None:
+            stab, umax = majmin_tile_margins(site_counts, n_seqs, tile,
+                                             plan.grid)
+            pti, ptj = plan.tile_i, plan.tile_j
+            safe = (((umax[ptj] == 0) | (stab[pti] > umax[ptj]))
+                    & ((umax[pti] == 0) | (stab[ptj] > umax[pti])))
+        if engine == "xla":
+            parts = [("xla", ~safe)]
+        else:
+            parts = [(kern, sel) for kern, sel
+                     in (("majmin", safe), ("general", ~safe)) if sel.any()]
+        hybrid_safe = safe if len(parts) == 2 else None
+        if sp:
+            sp.set(**{"majmin_tile_pairs": 0, "general_tile_pairs": 0,
+                      **{f"{kern}_tile_pairs": int(sel.sum())
+                         for kern, sel in parts}})
+    # Each phase's tile pairs striped over the G shards on its own
+    # (driver.py:852-877), each shard's share padded to whole batches with
+    # non-emitting tiles; batches are addressed by slice.  The general
+    # phase of a hybrid plan is usually small: its batches are no larger
+    # than a shard's share of it (JAX buckets that size in powers of 4 to
+    # bound its compiled shapes; nothing is compiled per shape here).
+    g, phases = n_shards, []
+    for kern, sel in parts:
+        with span("upload.plan") as sp:
+            ti_s, tj_s, em_s = stripe(replace(plan, tile_i=plan.tile_i[sel],
+                                              tile_j=plan.tile_j[sel]), g)
+            per = len(ti_s) // g
+            k_p = k if len(parts) == 1 or kern == "majmin" \
+                else max(1, min(k, per))
+            nb = cdiv(per, k_p)
+            tables = [np.pad(col.reshape(g, per).astype(np.int32),
+                             ((0, 0), (0, nb * k_p - per)))
+                      for col in (ti_s, tj_s, em_s)]
+            if sp:
+                sp.set(tile_pairs=int(sel.sum()), batches=nb)
+        phases.append(PhaseLayout(kern, sel, int(sel.sum()), k_p, nb,
+                                  *tables, entry=""))
+    return SessionLayout(
+        engine=engine, cfg=replace(cfg, tile=tile, seq_chunk=seq_chunk,
+                                   tiles_per_shard_batch=k),
+        n_pad=cdiv(n_seqs, seq_chunk) * seq_chunk, planes=planes,
+        site_perm=perm, order=order, stable_sites=stable,
+        windowed_packed=perm is not None and windowed, site_map=site_map,
+        site_counts=site_counts, plan=plan, hybrid_safe=hybrid_safe,
+        phases=tuple(phases))
 
 
 class LdSession:
@@ -595,7 +797,12 @@ class LdSession:
     the Henikoff weights on the device from the uploaded codes (float32
     cells; exposed as ``session.weights``).  ``devices`` is the list of
     local shard devices (default ``[device]``); every process of a
-    process group must pass as many."""
+    process group must pass as many.  ``session.layout``
+    (:class:`SessionLayout`) is what it runs."""
+
+    # Device operands that the session's layout does not name stay None.
+    codes_dev = auxc_dev = planes_dev = xq_dev = gplanes_dev = None
+    general_kw = None
 
     def __init__(self, alignment: np.ndarray | SiteMajorCodes,
                  weights: np.ndarray | None, site_map: np.ndarray,
@@ -612,12 +819,12 @@ class LdSession:
         self.n_local = len(self.devices)
         self.n_procs = process_count()
         self.n_shards = global_shard_count(self.n_local)
-        self.engine = _resolve_engine(cfg.engine)
+        engine = _resolve_engine(cfg.engine)
         sm = alignment if isinstance(alignment, SiteMajorCodes) else None
-        if sm is not None and self.engine != "pallas":
+        if sm is not None and engine != "pallas":
             raise ValueError(
                 "SiteMajorCodes input requires the pallas engine "
-                f"(resolved engine: {self.engine!r})")
+                f"(resolved engine: {engine!r})")
         if sm is not None:
             self.n_seqs, self.n_sites = sm.n_seqs, sm.n_sites
             want = self.required_padding(self.n_seqs, self.n_sites, cfg)
@@ -653,28 +860,6 @@ class LdSession:
         if cfg.kernel not in ("auto", "general"):
             raise ValueError(
                 f"kernel must be 'auto' or 'general', got {cfg.kernel!r}")
-
-        # No UNKNOWN anywhere: per-pair major/dmin are per-site properties
-        # and the factorized kernel is exact.  With UNKNOWNs it still is
-        # when every site's count margins absorb the worst per-pair
-        # removals.  kernel="general" skips the factorized selection.  The
-        # XLA engine decides none of this, so it never packs or splits the
-        # plan (JAX decides them under its pallas engine only,
-        # driver.py:370-411, :587).
-        self.planes = None
-        majmin = False
-        site_counts = None
-        if self.engine == "pallas":
-            with span("upload.scan", cells=self.n_seqs * self.n_sites):
-                self.planes, has_unknown = detect_planes_unknown(valid)
-                if cfg.kernel == "auto":
-                    if not has_unknown:
-                        majmin = True
-                    else:
-                        site_counts = self._host_counts()
-                        majmin = majmin_safe_with_unknown(
-                            None, site_counts, n_seqs=self.n_seqs)
-        del valid
         if cfg.cross_split is not None:
             if not 0 < cfg.cross_split < self.n_sites:
                 raise ValueError(
@@ -687,101 +872,20 @@ class LdSession:
                     "(a rectangle already bounds the pair set; distances "
                     "across a region boundary are ill-defined for "
                     "multi-chromosome layouts)")
-        site_map = np.asarray(site_map)
-        # The packing permutes the sites' rows of the codes on the device
-        # (after the upload), the site map and the histogram here.  A cross
-        # session never packs: its layout order is the rectangle.  Unlike
-        # the JAX session, a streamed (SiteMajorCodes) one packs too, so
-        # its records equal the standard session's, and so does one whose
-        # every site is dirty (the margin split of packing_permutation).
-        self.site_perm = None
-        self.windowed_packed = False
-        self._sm_orig_nondecr = None
-        if (not majmin and site_counts is not None
-                and cfg.cross_split is None):
-            with span("upload.pack") as pack_sp:
-                perm = packing_permutation(site_counts, self.n_seqs, cfg,
-                                           site_map)
-                windowed = (cfg.max_site_distance is not None
-                            or cfg.max_bp_distance is not None)
-                if pack_sp:
-                    margin, u = majmin_site_margins(site_counts, self.n_seqs)
-                    pack_sp.set(
-                        order=("none" if perm is None
-                               else "windowed" if windowed
-                               else "margin_split" if (u > 0).all()
-                               else "clean_dirty"),
-                        stable_sites=int((margin > u.max()).sum()))
-            if perm is not None:
-                self._sm_orig_nondecr = not bool((np.diff(site_map) < 0)
-                                                 .any())
-                site_map = site_map[perm]
-                site_counts = site_counts[perm]
-                self.site_perm = perm
-                self.windowed_packed = windowed
 
-        tile = resolve_tile(cfg.tile, self.engine)
-        seq_chunk = resolve_seq_chunk(cfg.seq_chunk, self.n_seqs)
-        cfg = replace(cfg, tile=tile, seq_chunk=seq_chunk)
-        self.cfg = cfg
-        self.site_map = site_map
+        self.layout = session_layout(valid, self._host_counts, self.n_seqs,
+                                     self.n_sites, site_map, cfg,
+                                     self.device, self.n_shards)
+        del valid
+        self.cfg = cfg = self.layout.cfg
+        self.site_map = self.layout.site_map
+        self.planes = self.layout.planes
         self._maf_cache = None
         self._sm_dev = self._sm_reps = None
         if cfg.max_bp_distance is not None:
-            # The site map is validated before any plan or upload work; its
-            # device copy serves the bp mask and ld_decay.
+            # The site map is validated before any upload; its device copy
+            # serves the bp mask and ld_decay.
             self._site_map_dev("--max-distance-bp")
-        with span("upload.plan") as plan_sp:
-            if self.windowed_packed:
-                self.plan = plan_tiles_permuted(
-                    self.n_sites, tile, cfg.max_site_distance,
-                    max_bp_distance=cfg.max_bp_distance,
-                    orig_idx=self.site_perm, site_map=site_map)
-            else:
-                self.plan = plan_tiles(
-                    self.n_sites, tile, cfg.max_site_distance,
-                    max_bp_distance=cfg.max_bp_distance, site_map=site_map,
-                    cross_split=cfg.cross_split)
-            if self.engine == "xla":
-                k = resolve_xla_tiles_per_batch(
-                    cfg.tiles_per_shard_batch, self.plan.n_tiles, tile,
-                    self.n_seqs, cfg.r2_threshold, self.device, self.n_shards)
-            else:
-                k = resolve_tiles_per_batch(cfg.tiles_per_shard_batch,
-                                            self.plan.n_tiles, tile,
-                                            cfg.r2_threshold, self.device,
-                                            self.n_shards)
-            cfg = replace(cfg, tiles_per_shard_batch=k)
-            self.cfg = cfg
-            # The hybrid split: a tile pair is factorized-exact when each
-            # side's margins absorb the other side's UNKNOWN counts
-            # (majmin_tile_margins); clean x clean tile pairs always are.
-            self.hybrid_safe = None
-            if not majmin and site_counts is not None:
-                stab, umax = majmin_tile_margins(site_counts, self.n_seqs,
-                                                 tile, self.plan.grid)
-                pti, ptj = self.plan.tile_i, self.plan.tile_j
-                safe = (((umax[ptj] == 0) | (stab[pti] > umax[ptj]))
-                        & ((umax[pti] == 0) | (stab[ptj] > umax[pti])))
-                if safe.all():
-                    majmin = True  # weaker than the global test, still exact
-                elif safe.any():
-                    self.hybrid_safe = safe
-            if self.engine == "xla":
-                parts = [("xla", np.ones(self.plan.n_tiles, bool))]
-            elif majmin:
-                parts = [("majmin", np.ones(self.plan.n_tiles, bool))]
-            elif self.hybrid_safe is not None:
-                parts = [("majmin", self.hybrid_safe),
-                         ("general", ~self.hybrid_safe)]
-            else:
-                parts = [("general", np.ones(self.plan.n_tiles, bool))]
-            kernels = {kern for kern, _sel in parts}
-            if plan_sp:
-                counts = {"majmin_tile_pairs": 0, "general_tile_pairs": 0}
-                counts.update({f"{kern}_tile_pairs": int(sel.sum())
-                               for kern, sel in parts})
-                plan_sp.set(**counts)
         # The permuted site-index window reads each pair's original indices
         # (driver.py:755-761); padding sites are dropped by keep anyway.
         self._orig_dev = None
@@ -789,149 +893,24 @@ class LdSession:
             orig = np.zeros(self.plan.s_pad, dtype=np.int64)
             orig[:self.n_sites] = self.site_perm
             self._orig_dev = torch.from_numpy(orig).to(self.device)
-
         if self.engine == "xla":
             self._upload_xla(alignment, weights)
         else:
-            n_pad = cdiv(self.n_seqs, seq_chunk) * seq_chunk
-            s_pad = self.plan.s_pad
-            dev = self.device
-            with span("upload.pack"):
-                if sm is not None:   # no second transpose
-                    codes_host = np.ascontiguousarray(sm.codes)
-                else:
-                    codes_host = pad_alignment_site_major(alignment, tile,
-                                                          seq_chunk)
-            with span("upload.copy", bytes=codes_host.nbytes):
-                codes_dev = torch.from_numpy(codes_host).to(dev)
-            del codes_host
-            if self.site_perm is not None:
-                with span("upload.planes"):
-                    rows = np.concatenate([self.site_perm,
-                                           np.arange(self.n_sites, s_pad)])
-                    codes_dev = codes_dev.index_select(
-                        0, torch.from_numpy(rows).to(dev))
-            if weights is None:
-                with span("upload.weights"):
-                    weights = henikoff_weights_site_major(
-                        codes_dev, self.n_seqs)[:self.n_seqs].cpu().numpy()
-            with span("upload.pack"):
-                w_arr = np.asarray(weights, dtype=np.float32)
-                exact = weights_bf16_exact(w_arr)
-                unit = bool((w_arr == 1.0).all())
-                if exact or unit:
-                    wquant = ""
-                elif cfg.weight_quant == "none":
-                    wquant = "int8x3"
-                elif cfg.weight_quant == "split_bf16":
-                    wquant = ""
-                else:
-                    wquant = cfg.weight_quant
-                nlev = {"int8": 2, "int8x3": 3}.get(wquant, 0)
-                if nlev:
-                    weights_host = pad_weights_int8(w_arr, seq_chunk,
-                                                    levels=nlev)
-                elif wquant == "lo_int8":
-                    weights_host = pad_weights_lo_int8(w_arr, seq_chunk)
-                else:
-                    weights_host = pad_weights(w_arr, seq_chunk)
-            # Preplaned factorized planes: the JAX session never preplanes a
-            # hybrid phase 0 (driver.py:709), but both factorized entries
-            # give the same bits, so phase 0 takes the planes whenever they
-            # fit, as a pure factorized session does.  The general kernel's
-            # one-hot planes only under "on": JAX never selects them
-            # (measured neutral on the TPU, pallas_ld.py:40-41), and the
-            # codes are read anyway.
-            mm_bytes = (1 + nlev) * 2 * s_pad * n_pad
-            self._preplaned = "majmin" in kernels and (
-                cfg.preplaned == "on" or (
-                    cfg.preplaned == "auto" and auto_preplaned(
-                        seq_chunk, mm_bytes, plane_budget(self.device))))
-            self.general_preplaned = ("general" in kernels
-                                      and cfg.preplaned == "on")
-            # Keyword arguments of every factorized kernel call of this
-            # session; the general kernel adds its planes.
-            self.kernel_kw = dict(tile=tile, n_sites=self.n_sites,
-                                  seq_chunk=seq_chunk, exact_weights=exact,
-                                  unit_weights=unit, wquant=wquant)
-            self.general_kw = dict(self.kernel_kw, planes=self.planes,
-                                   preplaned=self.general_preplaned)
-            self.weights = w_arr
-            with span("upload.copy", bytes=weights_host.nbytes):
-                self.weights_dev = torch.from_numpy(weights_host).to(dev)
-            self.auxc_dev = None
-            if "majmin" in kernels:
-                with span("upload.scan"):
-                    if site_counts is None:   # no packing: the input's order
-                        site_counts = self._host_counts()
-                    auxc, _auxr = majmin_site_aux(None, s_pad,
-                                                  counts=site_counts)
-                with span("upload.copy", bytes=auxc.nbytes):
-                    self.auxc_dev = torch.from_numpy(auxc).to(dev)
-            self.planes_dev = self.xq_dev = self.gplanes_dev = None
-            with span("upload.planes"):
-                if self._preplaned:
-                    self.planes_dev = build_majmin_planes(
-                        codes_dev, self.auxc_dev, tile=tile)
-                    if nlev:
-                        self.xq_dev = build_majmin_xq(self.planes_dev,
-                                                      self.weights_dev, nlev)
-                if self.general_preplaned:
-                    self.gplanes_dev = build_planes_tiled(
-                        codes_dev, tile=tile, planes=self.planes)
-            needs_codes = (("majmin" in kernels and not self._preplaned)
-                           or ("general" in kernels
-                               and not self.general_preplaned))
-            self.codes_dev = codes_dev if needs_codes else None
-            del codes_dev
-            # Every operand a batch reads, once per distinct shard device.
-            with span("upload.copy"):
-                self._ops = [dict(zip(("codes", "weights", "auxc", "planes",
-                                       "xq", "gplanes", "orig"), ops))
-                             for ops in replicate(
-                                 self.devices, self.codes_dev,
-                                 self.weights_dev, self.auxc_dev,
-                                 self.planes_dev, self.xq_dev,
-                                 self.gplanes_dev, self._orig_dev)]
+            self._upload(alignment, weights)
 
-        # Each phase's tile pairs striped over the G shards on its own
-        # (driver.py:852-877), each shard's share padded to whole batches
-        # with non-emitting tiles, and uploaded once; batches are addressed
-        # by slice.  The general phase of a hybrid plan is usually small:
-        # its batches are no larger than a shard's share of it (JAX buckets
-        # that size in powers of 4 to bound its compiled shapes; nothing is
-        # compiled per shape here).
-        g = self.n_shards
+        # Each phase's plan tables on each local shard's device: per kernel,
+        # one (tile_i, tile_j, emit) of [n_batches * k] per local shard.
         first = process_index() * self.n_local
-        self._phases = []
-        for kern, sel in parts:
-            with span("upload.plan") as sp:
-                sub = replace(self.plan, tile_i=self.plan.tile_i[sel],
-                              tile_j=self.plan.tile_j[sel])
-                ti_s, tj_s, em_s = stripe(sub, g)
-                per = len(ti_s) // g
-                k_p = k if len(parts) == 1 or kern == "majmin" \
-                    else max(1, min(k, per))
-                nb = cdiv(per, k_p)
-                ti = np.zeros((g, nb * k_p), np.int32)
-                tj = np.zeros((g, nb * k_p), np.int32)
-                em = np.zeros((g, nb * k_p), np.int32)
-                ti[:, :per] = ti_s.reshape(g, per)
-                tj[:, :per] = tj_s.reshape(g, per)
-                em[:, :per] = em_s.reshape(g, per)
-                if sp:
-                    sp.set(tile_pairs=sub.n_tiles, batches=nb)
-            with span("upload.copy", bytes=3 * ti[0].nbytes * self.n_local):
-                local = [(torch.from_numpy(ti[first + s]).to(d),
-                          torch.from_numpy(tj[first + s]).to(d),
-                          torch.from_numpy(em[first + s]).to(d))
-                         for s, d in enumerate(self.devices)]
-            self._phases.append(_Phase(
-                kernel=kern, n_tiles=sub.n_tiles, k=k_p, n_batches=nb,
-                tile_i_host=ti, tile_j_host=tj, emit_host=em,
-                tile_i=[x[0] for x in local],
-                tile_j=[x[1] for x in local], emit=[x[2] for x in local]))
-        self.n_batches = sum(ph.n_batches for ph in self._phases)
+        self._tables = {}
+        for ph in self.layout.phases:
+            with span("upload.copy",
+                      bytes=3 * ph.tile_i_host[0].nbytes * self.n_local):
+                self._tables[ph.kernel] = [
+                    tuple(torch.from_numpy(tab[first + s]).to(d)
+                          for tab in (ph.tile_i_host, ph.tile_j_host,
+                                      ph.emit_host))
+                    for s, d in enumerate(self.devices)]
+        self.n_batches = sum(ph.n_batches for ph in self.layout.phases)
         # The speculative capacity (driver.py:570-572): per batch, the
         # last-seen record count of each local shard under the threshold
         # ``_caps_thr``; for batches not seen, the two-batch window's.
@@ -945,6 +924,81 @@ class LdSession:
             for d in {str(d): d for d in self.devices}.values():
                 if d.type == "cuda":
                     torch.cuda.synchronize(d)  # set-up ends with its work
+
+    def _upload(self, alignment: np.ndarray | SiteMajorCodes,
+                weights) -> None:
+        """The kernels' operands, once per distinct shard device: the padded
+        site-major codes (permuted on the device by the layout's packing),
+        the weights packed in the layout's weight mode (``weights=None``:
+        the Henikoff weights of the uploaded codes,
+        ``henikoff_weights_site_major``), the factorized kernel's per-site
+        aux and the planes of each preplaned entry."""
+        lay, cfg, dev = self.layout, self.cfg, self.device
+        s_pad = lay.plan.s_pad
+        with span("upload.pack"):
+            if isinstance(alignment, SiteMajorCodes):  # no second transpose
+                codes_host = np.ascontiguousarray(alignment.codes)
+            else:
+                codes_host = pad_alignment_site_major(alignment, cfg.tile,
+                                                      cfg.seq_chunk)
+        with span("upload.copy", bytes=codes_host.nbytes):
+            codes_dev = torch.from_numpy(codes_host).to(dev)
+        del codes_host
+        if lay.site_perm is not None:
+            with span("upload.planes"):
+                rows = np.concatenate([lay.site_perm,
+                                       np.arange(self.n_sites, s_pad)])
+                codes_dev = codes_dev.index_select(
+                    0, torch.from_numpy(rows).to(dev))
+        if weights is None:
+            with span("upload.weights"):
+                weights = henikoff_weights_site_major(
+                    codes_dev, self.n_seqs)[:self.n_seqs].cpu().numpy()
+        with span("upload.pack"):
+            self.weights = np.asarray(weights, dtype=np.float32)
+            self.layout = lay = lay.with_weights(self.weights, dev)
+            weights_host = pack_weights(self.weights, lay.weight_mode,
+                                        cfg.seq_chunk)
+        _kind, nlev, weight_kw = WEIGHT_MODES[lay.weight_mode]
+        # Keyword arguments of every factorized kernel call of this
+        # session; the general kernel adds its planes.
+        self.kernel_kw = dict(tile=cfg.tile, n_sites=self.n_sites,
+                              seq_chunk=cfg.seq_chunk, **weight_kw)
+        self.general_kw = dict(self.kernel_kw, planes=self.planes,
+                               preplaned=lay.general_preplaned)
+        with span("upload.copy", bytes=weights_host.nbytes):
+            self.weights_dev = torch.from_numpy(weights_host).to(dev)
+        kernels = {p.kernel for p in lay.phases}
+        if "majmin" in kernels:
+            with span("upload.scan"):
+                counts = (lay.site_counts if lay.site_counts is not None
+                          else self._host_counts())  # the input's order
+                auxc, _auxr = majmin_site_aux(None, s_pad, counts=counts)
+            with span("upload.copy", bytes=auxc.nbytes):
+                self.auxc_dev = torch.from_numpy(auxc).to(dev)
+        with span("upload.planes"):
+            if lay.preplaned:
+                self.planes_dev = build_majmin_planes(
+                    codes_dev, self.auxc_dev, tile=cfg.tile)
+                if nlev:
+                    self.xq_dev = build_majmin_xq(self.planes_dev,
+                                                  self.weights_dev, nlev)
+            if lay.general_preplaned:
+                self.gplanes_dev = build_planes_tiled(
+                    codes_dev, tile=cfg.tile, planes=self.planes)
+        if ("majmin" in kernels and not lay.preplaned) or (
+                "general" in kernels and not lay.general_preplaned):
+            self.codes_dev = codes_dev
+        del codes_dev
+        # Every operand a batch reads, once per distinct shard device.
+        with span("upload.copy"):
+            self._ops = [dict(zip(("codes", "weights", "auxc", "planes",
+                                   "xq", "gplanes", "orig"), ops))
+                         for ops in replicate(
+                             self.devices, self.codes_dev,
+                             self.weights_dev, self.auxc_dev,
+                             self.planes_dev, self.xq_dev,
+                             self.gplanes_dev, self._orig_dev)]
 
     def _upload_xla(self, alignment: np.ndarray, weights) -> None:
         """The XLA engine's operands (``driver.py:785-806``): the
@@ -960,12 +1014,10 @@ class LdSession:
             weights = henikoff_weights(
                 codes_dev[:, :self.n_sites]).cpu().numpy()
         self.weights = np.asarray(weights, dtype=np.float32)
+        self.layout = self.layout.with_weights(self.weights, self.device)
         self.weights_dev = torch.from_numpy(self.weights).to(self.device)
         self.codes_dev = codes_dev
-        self.auxc_dev = self.planes_dev = self.xq_dev = self.gplanes_dev = None
-        self._preplaned = self.general_preplaned = False
         self.kernel_kw = dict(tile=tile, n_sites=self.n_sites)
-        self.general_kw = None
         self._ops = [dict(codes=c, weights=w, orig=None) for c, w
                      in replicate(self.devices, codes_dev, self.weights_dev)]
 
@@ -1000,30 +1052,26 @@ class LdSession:
                 self._host.codes, self.n_sites, self.n_seqs)
         return site_histogram_host(self._host)
 
-    @property
-    def preplaned(self) -> bool:
-        """Whether the factorized kernel runs its preplaned entry point."""
-        return self._preplaned
+    # What the layout decided, under the session's own names.
+    engine = property(lambda self: self.layout.engine)
+    plan = property(lambda self: self.layout.plan)
+    site_perm = property(lambda self: self.layout.site_perm)
+    windowed_packed = property(lambda self: self.layout.windowed_packed)
+    hybrid_safe = property(lambda self: self.layout.hybrid_safe)
+    phase_tiles = property(lambda self: self.layout.phase_tiles)
+    preplaned = property(lambda self: self.layout.preplaned)
+    general_preplaned = property(lambda self: self.layout.general_preplaned)
 
     @property
     def operands(self) -> tuple[torch.Tensor, ...]:
         """The factorized kernel's leading arguments: ``(planes, xq)`` for
         the preplaned entry, ``(codes,)`` for the codes entry."""
-        if self._preplaned:
+        if self.preplaned:
             return self.planes_dev, self.xq_dev
         return (self.codes_dev,)
 
-    @property
-    def phase_tiles(self) -> dict[str, int]:
-        """Real tile pairs per kernel: ``{"majmin": n, "general": m}``, and
-        ``"xla"``, all of them, for an XLA-engine session."""
-        out = {"majmin": 0, "general": 0}
-        for ph in self._phases:
-            out[ph.kernel] = out.get(ph.kernel, 0) + ph.n_tiles
-        return out
-
-    def _locate(self, b: int) -> tuple[_Phase, int]:
-        for ph in self._phases:
+    def _locate(self, b: int) -> tuple[PhaseLayout, int]:
+        for ph in self.layout.phases:
             if b < ph.n_batches:
                 return ph, b
             b -= ph.n_batches
@@ -1034,7 +1082,8 @@ class LdSession:
         batch ``b``, on its device."""
         ph, lb = self._locate(b)
         sl = slice(lb * ph.k, (lb + 1) * ph.k)
-        return ph.tile_i[shard][sl], ph.tile_j[shard][sl], ph.emit[shard][sl]
+        ti, tj, em = self._tables[ph.kernel][shard]
+        return ti[sl], tj[sl], em[sl]
 
     def batch_tiles_host(self, b: int, shard: int = 0,
                          ) -> tuple[np.ndarray, ...]:
@@ -1062,7 +1111,7 @@ class LdSession:
             src = op["gplanes"] if self.general_preplaned else op["codes"]
             return (tile_stats_general, tile_stats_general_plain,
                     (src, op["weights"]), self.general_kw)
-        if self._preplaned:
+        if self.preplaned:
             fn, plain = tile_stats_majmin_pre, tile_stats_majmin_pre_plain
             lead = (op["planes"], op["xq"])
         else:
@@ -1411,18 +1460,15 @@ class LdSession:
         """The site map as a padded ``[S_pad]`` int32 device tensor, one
         validated copy for the bp-window mask and :meth:`ld_decay` (copy of
         ``_ensure_sm_dev``, ``driver.py:920-951``): int32 range, and
-        non-decreasing in the caller's input order (``_sm_orig_nondecr``
-        under packing: the packed map is non-monotonic by design, and
-        per-pair |distance| is order-free)."""
+        non-decreasing in the caller's input order (the packed map is
+        non-monotonic by design, and per-pair |distance| is order-free)."""
         if self._sm_dev is not None:
             return self._sm_dev
         sm = self.site_map
         if sm.size and (sm.max() > np.iinfo(np.int32).max or sm.min() < 0):
             raise ValueError(f"{what} needs site_map positions that fit "
                              "int32 (the device distance dtype)")
-        nondecr = (self._sm_orig_nondecr if self.site_perm is not None
-                   else not bool((np.diff(sm) < 0).any()))
-        if not nondecr:
+        if (np.diff(self._in_input_order(sm)) < 0).any():
             raise ValueError(
                 f"{what} needs a non-decreasing site_map (positions "
                 "restart mid-file — multi-chromosome input? run per "
@@ -1745,15 +1791,8 @@ def collect_ld_records(alignment: np.ndarray | SiteMajorCodes,
 
 
 def _plan_engine(session: LdSession) -> str:
-    """The kernels a session's plan runs: ``majmin`` (factorized over the
-    whole plan), ``hybrid`` (factorized, then general) or ``general``; or
-    ``xla``, the XLA tile engine."""
-    if session.engine == "xla":
-        return "xla"
-    tiles = session.phase_tiles
-    if tiles["general"] == 0:
-        return "majmin"
-    return "hybrid" if tiles["majmin"] else "general"
+    """The kernels a session's plan runs (:attr:`SessionLayout.plan_kind`)."""
+    return session.layout.plan_kind
 
 
 def run_to_tsv(alignment: np.ndarray | SiteMajorCodes,
