@@ -355,7 +355,9 @@ def test_general_kernel_matches_plain_on_card(cuda_device, name, entry):
 # fraction, planes): P = 2..5 (blocks of 128 / P A sites x 8-96 B sites);
 # T = 512 and tiles below a block; seq chunks that are not multiples of 16
 # (4-byte staging, partial stages); N = 3,000 in three chunks; a restricted
-# planes tuple.
+# planes tuple; at P = 5 and T = 256, diagonal tile pairs and a ragged last
+# tile of 88 sites, and a last tile of one site (its diagonal tile pair
+# wholly dead), where the kernel runs only the live work items.
 GENERAL_EDGE_CASES = {
     "p2-t512-c200": (51, (0, 1), 200, 600, 512, 200, 0.03, None),
     "p3-t96-c40": (52, (0, 1, 2), 150, 300, 96, 40, 0.05, None),
@@ -364,6 +366,9 @@ GENERAL_EDGE_CASES = {
     "restricted-t48": (55, (0, 1, 2, 3, 4), 150, 300, 48, 120, 0.05,
                        (1, 3, 4)),
     "p5-n3000": (56, (0, 1, 2, 3, 4), 3000, 300, 96, 1024, 0.02, None),
+    "p5-t256-ragged": (57, (0, 1, 2, 3, 4), 300, 600, 256, 256, 0.02, None),
+    "p5-t256-one-site": (58, (0, 1, 2, 3, 4), 200, 513, 256, 200, 0.02,
+                         None),
 }
 
 
@@ -397,6 +402,53 @@ def test_general_wgmma_body_bit_equal_on_card(cuda_device, name, mode,
         torch.testing.assert_close(getattr(got, f).cpu()[keep],
                                    getattr(ref, f).cpu()[keep], rtol=tol[0],
                                    atol=tol[1], equal_nan=True, msg=f)
+
+
+@pytest.mark.cuda
+def test_traced_live_items_of_the_pol_cell_on_card(cuda_device):
+    """On the CPU-size input of the benchmark's ``hiv_pol_iupac``
+    (``ldbench/tiny``: some 385 kept sites, a diagonal tile pair and a
+    ragged last tile), each general ``batch.kernel`` span of a traced query
+    counts the launch's work items and its live ones as a search over every
+    pair of every item does, with the block the library names."""
+    import json
+    import time
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ldbench.harness import loops, spec
+    from weightedld_tpu_torch.runtime import profiling
+
+    from .test_torch_general_items import live_blocks
+
+    lb = Path(__file__).resolve().parents[1] / "ldbench"
+    cfg = {**json.loads((lb / "configs" / "hiv_pol_iupac.json").read_text()),
+           **json.loads((lb / "tiny" / "hiv_pol_iupac.json").read_text())}
+    data = spec.load_module(lb / "generators" / "iupac_fasta.py").generate(
+        cfg, 2**31 + 41, "cpu")
+    mix = json.loads((lb / "traffic" / "session.json").read_text())
+    sess, _pos, _codes = loops.build_session(cfg, data, mix, "cuda")
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU]):
+        sess.summarize()
+    spans = [s for s in profiling.spans() if s.start >= t0
+             and s.name == "batch.kernel" and s.attrs["kernel"] == "general"]
+    batches = [b for b in range(sess.n_batches)
+               if sess._locate(b)[0].kernel == "general"]
+    assert len(spans) == len(batches) > 0
+    kw = sess.general_kw
+    block = G.work_block(len(sess.planes), exact_weights=kw["exact_weights"],
+                         unit_weights=kw["unit_weights"], wquant=kw["wquant"],
+                         preplaned=kw["preplaned"])
+    assert block[0] == 128 // len(sess.planes) // 8 * 8
+    for b, sp in zip(batches, spans):
+        ti, tj, em = sess.batch_tiles_host(b)
+        want = live_blocks(ti, tj, em, tile=sess.cfg.tile,
+                           n_sites=sess.n_sites, block=block)
+        assert 0 < want.sum() < want.size
+        assert (sp.attrs["items"], sp.attrs["live_items"]) == (
+            want.size, int(want.sum()))
 
 
 # dispatch builds one body for P = 1..5 in six modes and refuses the rest

@@ -66,10 +66,10 @@
 // unit weights) against the factorized body's 2,048, because every pair
 // holds P^2 accumulators per pass.
 //
-// The schedule follows ld_majmin.cu's: persistent CTAs (one per SM, items
-// strided by the grid) of two consumer warpgroups and two producer
-// warpgroups (setmaxnreg: consumers 160 registers, producers 96), a ring
-// of stages with mbarriers full / empty, waits that trap after 10 s.  A
+// The schedule follows ld_majmin.cu's: persistent CTAs (one per SM; which
+// items each runs, below) of two consumer warpgroups and two producer
+// warpgroups (setmaxnreg: consumers 160 registers, producers 96), a ring of
+// stages with mbarriers full / empty, waits that trap after 10 s.  A
 // stage is two 128-byte swizzled atoms wide (256 int8 or 128 bf16
 // columns: two halves side by side, each an A block and a B block) where
 // shared memory holds 2 of them, else one atom; unit weights keep one
@@ -97,8 +97,26 @@
 // pair's counts, run major_dmin and the distinct > 1 test, read the four
 // selected cells, run the pair algebra and store, while the producers fill
 // the next item's first stages (an epilogue warpgroup of its own would
-// leave the consumers fewer registers than an N = 160 wgmma needs).  A
-// tile pair with emit == 0 only zeroes its keep block.
+// leave the consumers fewer registers than an N = 160 wgmma needs).
+//
+// Which items run.  Every item runs over all N sequences, but only pairs
+// gi < gj < n_sites are kept, so the items of a diagonal tile pair below
+// the diagonal and those past the last site of a ragged last tile hold
+// nothing to emit: in a plan of a few tile pairs, most of them diagonal or
+// ragged, they are a third to a half of the items (a query of
+// hiv_pol_iupac.session: 53-61 % live).  An item is live where its tile
+// pair emits and some pair of its block passes that gate; for a given A
+// block the live B blocks are one interval, in closed form (live_span).
+// Only live items are staged, contracted and finalized; a dead item (a
+// padding tile pair's too) only has its keep block zeroed, by the
+// consumers before their first item.  The live items are dealt in turn,
+// the n-th of the launch to CTA n mod grid, so every CTA runs floor(L /
+// grid) or ceil(L / grid) of the L live items: striding over all items and
+// skipping the dead would leave the CTAs whose stride meets the most live
+// items to set the launch's time.  Each role of a CTA steps the same walk
+// (LiveWalk) on its own, a row of the interval table at a time, with no
+// table in memory.  A plan with no dead item (full off-diagonal tiles)
+// runs the items of the strided walk, in the same order.
 //
 // Numerics that must match the JAX package bit for bit where it is exact:
 //   * Counts and int8 joints are exact integers.  The weighted combine runs
@@ -546,43 +564,136 @@ __device__ __forceinline__ Item item_of(int item, int tile) {
   return {item / per_tile, (item % per_tile) / nb, (item % per_tile) % nb};
 }
 
-// The stages of a CTA in order: the emitting work items blockIdx.x,
-// + gridDim.x, ...; in each, the reference seq chunks and their kCols-column
-// steps.
+// The live B blocks [lo, hi] of A block bi of the tile pair (ti, tj): B
+// block bj is live iff it holds a pair that finalize_item can keep, some
+// A site gi and B site gj of the block with gi < gj < n_sites.  With a0 =
+// ti T + bi kSA, b0 = tj T + bj kSB and b1 = min(tj T + min(bj kSB + kSB,
+// T), n_sites) - 1 that is b0 <= b1 (the block holds a site below
+// n_sites: bj <= hi) and a0 < b1 (its last such site lies above the
+// block's first A site: bj >= lo).  lo > hi where none is.
 template <class G>
-struct StageWalk {
-  int item, c0, k0;
-  int64_t kt;
-  int bi, bj;
-  int ti, tj;  // the item's site tiles
-  // The first stage of the first emitting item at or after `item`.
-  __device__ void settle(const Params& p, int n_items) {
-    c0 = k0 = 0;
-    for (; item < n_items; item += gridDim.x) {
-      const Item w = item_of<G>(item, p.tile);
-      if (p.emit[w.kt] != 0) {
-        kt = w.kt;
-        bi = w.bi;
-        bj = w.bj;
-        ti = p.tile_i[w.kt];
-        tj = p.tile_j[w.kt];
+__device__ __forceinline__ void live_span(const Params& p, int ti, int tj,
+                                          int bi, int& lo, int& hi) {
+  const int nb = (p.tile + G::kSB - 1) / G::kSB;
+  const int bt = tj * p.tile;
+  const int a0 = ti * p.tile + bi * G::kSA;
+  const int room = p.n_sites - bt;       // B sites below n_sites
+  hi = room > 0 ? min(nb - 1, (room - 1) / G::kSB) : -1;
+  // a0 + 1 <= b1: a0 + 2 <= n_sites and a0 + 2 - bt <= min((bj + 1) kSB, T).
+  const int need = a0 + 2 - bt;
+  lo = need <= 0 ? 0 : (need + G::kSB - 1) / G::kSB - 1;
+  if (a0 + 2 > p.n_sites || need > p.tile) hi = -1;
+}
+
+// Whether a work item is live: its tile pair emits and live_span holds it.
+template <class G>
+__device__ __forceinline__ bool is_live(const Params& p, const Item& w) {
+  if (__ldg(p.emit + w.kt) == 0) return false;
+  int lo, hi;
+  live_span<G>(p, __ldg(p.tile_i + w.kt), __ldg(p.tile_j + w.kt), w.bi, lo,
+               hi);
+  return lo <= w.bj && w.bj <= hi;
+}
+
+// A CTA's live work items in launch order: the launch's live items
+// numbered in item order, the CTA taking numbers blockIdx.x, + gridDim.x,
+// ....  In a tile pair the live rows (kt, bi) are a prefix 0..rows - 1,
+// each from B block lo(bi) to the same hi (live_span): lo = 0 in rows
+// 0..full - 1, so a step skips those whole rows by one division and walks
+// only the rows that cross the diagonal.  Only entering a tile pair reads
+// memory (its emit and tiles).  Every role of the CTA walks the same
+// sequence.
+template <class G>
+struct LiveWalk {
+  int k;          // the launch's tile pairs
+  int kt, bi, bj;
+  int ti, tj;     // the item's site tiles
+  int hi;         // the tile pair's last live B block
+  int full;       // rows 0..full - 1 are live from B block 0
+  int rows;       // rows 0..rows - 1 are live
+  __device__ void start(const Params& p, int n_tiles) {
+    k = n_tiles;
+    kt = 0;
+    enter(p);
+    advance(p, blockIdx.x);
+  }
+  __device__ bool done() const { return kt >= k; }
+  __device__ Item item() const { return {kt, bi, bj}; }
+  // Row bi's first live B block (live_span's lo).
+  __device__ int lo(const Params& p) const {
+    if (bi < full) return 0;
+    return ((ti - tj) * p.tile + bi * G::kSA + 2 + G::kSB - 1) / G::kSB - 1;
+  }
+  // The first tile pair from kt on with a live item: its rows, and (bi,
+  // bj) its first live item.  Row bi is live (live_span) iff its first A
+  // site a0 = ti T + bi kSA has a0 + 2 <= n_sites and a0 + 2 - tj T <= T,
+  // and starts at B block 0 iff a0 + 2 - tj T <= kSB.
+  __device__ void enter(const Params& p) {
+    const int na = (p.tile + G::kSA - 1) / G::kSA;
+    const int nb = (p.tile + G::kSB - 1) / G::kSB;
+    for (; kt < k; ++kt) {
+      if (__ldg(p.emit + kt) == 0) continue;
+      ti = __ldg(p.tile_i + kt);
+      tj = __ldg(p.tile_j + kt);
+      const int room = p.n_sites - tj * p.tile;
+      hi = room > 0 ? min(nb - 1, (room - 1) / G::kSB) : -1;
+      const int d = (tj - ti) * p.tile;
+      const int lim = min(p.n_sites - ti * p.tile, p.tile + d) - 2;
+      rows = hi < 0 || lim < 0 ? 0 : min(na, lim / G::kSA + 1);
+      const int flim = G::kSB - 2 + d;
+      full = flim < 0 ? 0 : min(rows, flim / G::kSA + 1);
+      if (rows > 0) {
+        bi = 0;
+        bj = lo(p);
         return;
       }
     }
   }
+  // Step n live items on.
+  __device__ void advance(const Params& p, int n) {
+    while (kt < k && bj + n > hi) {
+      n -= hi - bj + 1;    // past this row's last, onto the next row's first
+      if (++bi < full) {   // whole rows of hi + 1 live items
+        const int m = min(full - bi, n / (hi + 1));
+        bi += m;
+        n -= m * (hi + 1);
+      }
+      if (bi < rows) {
+        bj = lo(p);
+      } else {
+        ++kt;
+        enter(p);
+      }
+    }
+    bj += n;
+  }
+};
+
+// The reference seq chunks of an item and their kCols-column steps.
+template <class G>
+struct Chunks {
+  int c0 = 0, k0 = 0;
   __device__ int width(const Params& p) const {
     return min(G::kCols, c0 + p.seq_chunk - k0);
   }
-  // Step to the next stage; true when it starts another item.
-  __device__ bool next(const Params& p, int n_items) {
+  // Step to the next stage; true when the item ends.
+  __device__ bool next(const Params& p) {
     k0 += G::kCols;
     if (k0 < c0 + p.seq_chunk) return false;
     c0 += p.seq_chunk;
     k0 = c0;
     if (c0 < p.n_pad) return false;
-    item += gridDim.x;
-    settle(p, n_items);
+    c0 = k0 = 0;
     return true;
+  }
+};
+
+// The stages of a CTA in order: its live work items (LiveWalk), in each the
+// stages of Chunks.
+template <class G>
+struct StageWalk : LiveWalk<G>, Chunks<G> {
+  __device__ void next(const Params& p) {
+    if (Chunks<G>::next(p)) this->advance(p, gridDim.x);
   }
 };
 
@@ -790,17 +901,16 @@ __device__ __forceinline__ void build_stage(const Params& p, int width,
 // (zero past the stage width); the full barrier completes when they have
 // landed.
 template <class G>
-__device__ __forceinline__ void produce_direct(const Params& p, int n_items,
+__device__ __forceinline__ void produce_direct(const Params& p, int k,
                                                uint32_t stages, uint32_t full,
                                                uint32_t empty, int pt) {
   const int ch = pt % G::kPieces;
   const int col = 16 * ch;
   const bool v16 = p.vec16 != 0;
   StageWalk<G> at;
-  at.item = blockIdx.x;
-  at.settle(p, n_items);
+  at.start(p, k);
   Cursor<G::kStages> cur;
-  while (at.item < n_items) {
+  while (!at.done()) {
     const int bytes = min(max(at.width(p) - col, 0), 16);
     const int off = bytes > 0 ? at.k0 + col : 0;
     mbar_wait(empty + 8 * cur.stage, cur.phase ^ 1);
@@ -819,7 +929,7 @@ __device__ __forceinline__ void produce_direct(const Params& p, int n_items,
     }
     cp_async_arrive(full + 8 * cur.stage);
     cur.next();
-    at.next(p, n_items);
+    at.next(p);
   }
   cp_async_wait<0>();
 }
@@ -831,31 +941,33 @@ __device__ __forceinline__ void builder_sync() {
 
 // Builder warpgroup ROLE: the raw slots of the next kRawDepth - 1 stages
 // are in flight (cp.async into the other raw buffers; walk `ahead`) while
-// this stage (walk `at`) is built; the full barrier completes when every
-// thread of both builders has built its share.
+// this stage is built (its columns: `at`, `pending` stages fetched and not
+// yet built); the full barrier completes when every thread of both
+// builders has built its share.
 template <class G, bool PRE, int ROLE>
-__device__ __forceinline__ void produce(const Params& p, int n_items,
+__device__ __forceinline__ void produce(const Params& p, int k,
                                         uint8_t* gst, uint32_t raw,
                                         const uint8_t* graw, uint32_t full,
                                         uint32_t empty, int pt) {
   constexpr int kDepth = G::kRawDepth;
   // This builder's part of each raw buffer.
   constexpr int kBase = ROLE == 0 ? 0 : G::kSlotsA * kProducers * 16;
-  StageWalk<G> at;
-  at.item = blockIdx.x;
-  at.settle(p, n_items);
-  if (at.item >= n_items) return;
-  StageWalk<G> ahead = at;
+  StageWalk<G> ahead;
+  ahead.start(p, k);
+  if (ahead.done()) return;
+  int pending = 0;
   auto fetch = [&](int slot) {
-    if (ahead.item < n_items) {
+    if (!ahead.done()) {
       fetch_raw<G, PRE, ROLE>(p, ahead, raw + slot * G::kRawBytes + kBase,
                               pt);
-      ahead.next(p, n_items);
+      ahead.next(p);
+      ++pending;
     }
     cp_async_commit();  // one group per stage, empty past the end
   };
 #pragma unroll
   for (int i = 0; i < kDepth - 1; ++i) fetch(i);
+  Chunks<G> at;
   Cursor<G::kStages> cur;
   int slot = 0;  // this stage's raw buffer
   // The B builder shares the stage's weights (and, in the codes entry,
@@ -863,7 +975,7 @@ __device__ __forceinline__ void produce(const Params& p, int n_items,
   // only after every thread has built from it, and built from only after
   // every thread's copy has landed.
   constexpr bool kShared = ROLE == 1;
-  while (at.item < n_items) {
+  while (pending > 0) {
     if constexpr (kShared) builder_sync();
     fetch(slot == 0 ? kDepth - 1 : slot - 1);
     cp_async_wait<kDepth - 1>();  // this stage's raw slots have landed
@@ -876,7 +988,8 @@ __device__ __forceinline__ void produce(const Params& p, int n_items,
     mbar_arrive(full + 8 * cur.stage);
     cur.next();
     slot = slot == kDepth - 1 ? 0 : slot + 1;
-    at.next(p, n_items);
+    at.next(p);
+    --pending;
   }
 }
 
@@ -889,14 +1002,28 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
 }
 
-// Finalize the pairs of one item from its cells (consumer thread ct of
-// 256): the counts (the unit joint's marginals), major and dominant minor
-// at both sites (_ld_finalize, pallas_ld.py:503-528), the four selected
-// cells, the pair algebra and the stores; a padding tile pair (emit == 0)
-// only zeroes its keep block.
+// Zero the keep block of a dead item (thread t of nt): a padding tile
+// pair's (emit == 0), or one that holds no pair finalize_item could keep.
+// Its d, d_prime and r2 are not written: they mean something only where
+// keep is set.
+template <class G>
+__device__ __forceinline__ void zero_keep(const Params& p, const Item& w,
+                                          int t, int nt) {
+  for (int q = t; q < G::kSA * G::kSB; q += nt) {
+    const int li = w.bi * G::kSA + q / G::kSB;
+    const int lj = w.bj * G::kSB + q % G::kSB;
+    if (li < p.tile && lj < p.tile)
+      p.keep[(w.kt * p.tile + li) * p.tile + lj] = 0;
+  }
+}
+
+// Finalize the pairs of one live item from its cells (consumer thread ct
+// of 256): the counts (the unit joint's marginals), major and dominant
+// minor at both sites (_ld_finalize, pallas_ld.py:503-528), the four
+// selected cells, the pair algebra and the stores.
 template <class G, bool UNIT>
 __device__ __forceinline__ void finalize_item(const Params& p, const Item& w,
-                                              bool emit, const int32_t* uj,
+                                              const int32_t* uj,
                                               const float* run, int ct) {
   constexpr int P = G::kP;
   const int tile = p.tile;
@@ -907,10 +1034,6 @@ __device__ __forceinline__ void finalize_item(const Params& p, const Item& w,
     const int lj = w.bj * G::kSB + q % G::kSB;
     if (li >= tile || lj >= tile) continue;
     const int64_t o = (w.kt * tile + li) * tile + lj;
-    if (!emit) {
-      p.keep[o] = 0;
-      continue;
-    }
     const int32_t* J = uj + q * P * P;
     int32_t ca[P], cb[P];
 #pragma unroll
@@ -948,12 +1071,14 @@ __device__ __forceinline__ void finalize_item(const Params& p, const Item& w,
   }
 }
 
-// Persistent: each CTA walks work items blockIdx.x, + gridDim.x, ...; the
-// stage ring runs on across items, so the producers fill the next item's
-// first stages while the consumers combine and finalize the last one.
+// Persistent: each CTA walks its share of the live work items (LiveWalk);
+// the stage ring runs on across items, so the producers fill the next
+// item's first stages while the consumers combine and finalize the last
+// one.  The consumers first zero the keep blocks of the dead items
+// blockIdx.x, + gridDim.x, ..., a warp each in turn.
 template <int P, int NLEV, int NFLT, bool UNIT, bool PRE>
 __global__ void __launch_bounds__(kThreads, 1)
-ld_general_wgmma(const Params p, int n_items) {
+ld_general_wgmma(const Params p, int k) {
   using G = Geom<P, NLEV, NFLT, UNIT, PRE>;
   static_assert(G::kFits, "shared memory of one CTA");
   constexpr int kStages = G::kStages;
@@ -991,11 +1116,11 @@ ld_general_wgmma(const Params p, int n_items) {
     const uint8_t* const graw = gbase + (rawbuf - base);
     if (pt < kProducers) {
       if constexpr (G::kDirectA)
-        produce_direct<G>(p, n_items, base, full, empty, pt);
+        produce_direct<G>(p, k, base, full, empty, pt);
       else
-        produce<G, PRE, 0>(p, n_items, gbase, rawbuf, graw, full, empty, pt);
+        produce<G, PRE, 0>(p, k, gbase, rawbuf, graw, full, empty, pt);
     } else {
-      produce<G, PRE, 1>(p, n_items, gbase, rawbuf, graw, full, empty,
+      produce<G, PRE, 1>(p, k, gbase, rawbuf, graw, full, empty,
                          pt - kProducers);
     }
     return;
@@ -1009,14 +1134,27 @@ ld_general_wgmma(const Params p, int n_items) {
   float a[NLEV > 0 ? NLEV : 1];
 #pragma unroll
   for (int l = 0; l < NLEV; ++l) a[l] = p.scale[l];
+  {
+    // 32 of the CTA's candidates a warp and step, the dead ones zeroed by
+    // the warp that found them.
+    const int n_items = k * ((tile + G::kSA - 1) / G::kSA) *
+                        ((tile + G::kSB - 1) / G::kSB);
+    const int stride = gridDim.x * 32;
+    for (int c = blockIdx.x + (tid >> 5) * stride; c < n_items;
+         c += kConsumers / 32 * stride) {
+      const int item = c + lane * gridDim.x;
+      const bool dead =
+          item < n_items && !is_live<G>(p, item_of<G>(item, tile));
+      for (uint32_t m = __ballot_sync(~0u, dead); m != 0; m &= m - 1)
+        zero_keep<G>(p, item_of<G>(c + (__ffs(m) - 1) * gridDim.x, tile),
+                     lane, 32);
+    }
+  }
   Acc D[R];
   Cursor<kStages> cur;
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const Item w = item_of<G>(item, tile);
-    if (p.emit[w.kt] == 0) {
-      finalize_item<G, UNIT>(p, w, false, uj, run, tid);
-      continue;
-    }
+  LiveWalk<G> live;
+  for (live.start(p, k); !live.done(); live.advance(p, gridDim.x)) {
+    const Item w = live.item();
     for (int c0 = 0; c0 < p.n_pad; c0 += p.seq_chunk) {
       int scale_d = 0;   // the chunk's first wgmma starts a new sum
       int prev = -1;     // the stage whose wgmma group may still run
@@ -1097,7 +1235,7 @@ ld_general_wgmma(const Params p, int n_items) {
     }
     // Every consumer has combined the item's last chunk.
     consumers_sync();
-    finalize_item<G, UNIT>(p, w, true, uj, run, tid);
+    finalize_item<G, UNIT>(p, w, uj, run, tid);
   }
 }
 
@@ -1112,42 +1250,59 @@ int sm_count() {
   return count;
 }
 
-template <int P, int NLEV, int NFLT, bool UNIT, bool PRE>
-int launch(const Params& p, int k, cudaStream_t stream) {
-  using G = Geom<P, NLEV, NFLT, UNIT, PRE>;
-  auto kern = ld_general_wgmma<P, NLEV, NFLT, UNIT, PRE>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
-  if (e != cudaSuccess) return (int)e;
-  const int64_t items = (int64_t)k * ((p.tile + G::kSA - 1) / G::kSA) *
-                        ((p.tile + G::kSB - 1) / G::kSB);
-  const int grid = (int)(items < sm_count() ? items : sm_count());
-  kern<<<grid, kThreads, G::kSmem, stream>>>(p, (int)items);
-  return (int)cudaGetLastError();
-}
+// Launch one instantiation on the launch's k tile pairs.
+struct Launch {
+  const Params& p;
+  int k;
+  cudaStream_t stream;
+  template <int P, int NLEV, int NFLT, bool UNIT, bool PRE>
+  int run() const {
+    using G = Geom<P, NLEV, NFLT, UNIT, PRE>;
+    auto kern = ld_general_wgmma<P, NLEV, NFLT, UNIT, PRE>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    const int64_t items = (int64_t)k * ((p.tile + G::kSA - 1) / G::kSA) *
+                          ((p.tile + G::kSB - 1) / G::kSB);
+    const int grid = (int)(items < sm_count() ? items : sm_count());
+    kern<<<grid, kThreads, G::kSmem, stream>>>(p, k);
+    return (int)cudaGetLastError();
+  }
+};
+
+// Name one instantiation's work item: kSA A sites x kSB B sites.
+struct Block {
+  int* sa;
+  int* sb;
+  template <int P, int NLEV, int NFLT, bool UNIT, bool PRE>
+  int run() const {
+    using G = Geom<P, NLEV, NFLT, UNIT, PRE>;
+    *sa = G::kSA;
+    *sb = G::kSB;
+    return 0;
+  }
+};
 
 // The instantiation by weight mode; any other (nlev, nflt) is refused.
-template <int P, bool PRE>
-int by_mode(const Params& p, int k, int nlev, int nflt, bool unit,
-            cudaStream_t stream) {
-  if (unit) return launch<P, 0, 0, true, PRE>(p, k, stream);
-  if (nflt == 0 && nlev == 2) return launch<P, 2, 0, false, PRE>(p, k, stream);
-  if (nflt == 0 && nlev == 3) return launch<P, 3, 0, false, PRE>(p, k, stream);
-  if (nlev == 0 && nflt == 1) return launch<P, 0, 1, false, PRE>(p, k, stream);
-  if (nlev == 0 && nflt == 2) return launch<P, 0, 2, false, PRE>(p, k, stream);
-  if (nlev == 1 && nflt == 1) return launch<P, 1, 1, false, PRE>(p, k, stream);
+template <int P, bool PRE, class Op>
+int by_mode(const Op& op, int nlev, int nflt, bool unit) {
+  if (unit) return op.template run<P, 0, 0, true, PRE>();
+  if (nflt == 0 && nlev == 2) return op.template run<P, 2, 0, false, PRE>();
+  if (nflt == 0 && nlev == 3) return op.template run<P, 3, 0, false, PRE>();
+  if (nlev == 0 && nflt == 1) return op.template run<P, 0, 1, false, PRE>();
+  if (nlev == 0 && nflt == 2) return op.template run<P, 0, 2, false, PRE>();
+  if (nlev == 1 && nflt == 1) return op.template run<P, 1, 1, false, PRE>();
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool PRE>
-int dispatch(const Params& p, int k, int n_planes, int nlev, int nflt,
-             bool unit, cudaStream_t stream) {
+template <bool PRE, class Op>
+int dispatch(const Op& op, int n_planes, int nlev, int nflt, bool unit) {
   switch (n_planes) {
-    case 1: return by_mode<1, PRE>(p, k, nlev, nflt, unit, stream);
-    case 2: return by_mode<2, PRE>(p, k, nlev, nflt, unit, stream);
-    case 3: return by_mode<3, PRE>(p, k, nlev, nflt, unit, stream);
-    case 4: return by_mode<4, PRE>(p, k, nlev, nflt, unit, stream);
-    case 5: return by_mode<5, PRE>(p, k, nlev, nflt, unit, stream);
+    case 1: return by_mode<1, PRE>(op, nlev, nflt, unit);
+    case 2: return by_mode<2, PRE>(op, nlev, nflt, unit);
+    case 3: return by_mode<3, PRE>(op, nlev, nflt, unit);
+    case 4: return by_mode<4, PRE>(op, nlev, nflt, unit);
+    case 5: return by_mode<5, PRE>(op, nlev, nflt, unit);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1211,10 +1366,9 @@ extern "C" int ld_general(const void* codes, const void* planes, const void* q,
                    packed_planes))
     return (int)cudaErrorInvalidValue;
   if (k <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return planes != nullptr
-             ? dispatch<true>(p, k, n_planes, nlev, nflt, false, s)
-             : dispatch<false>(p, k, n_planes, nlev, nflt, false, s);
+  const Launch op{p, k, static_cast<cudaStream_t>(stream)};
+  return planes != nullptr ? dispatch<true>(op, n_planes, nlev, nflt, false)
+                           : dispatch<false>(op, n_planes, nlev, nflt, false);
 }
 
 // Entry for _ld_kernel_unit: unit weights, one int32 joint over all of N
@@ -1238,7 +1392,18 @@ extern "C" int ld_general_unit(const void* codes, const void* planes,
   if (k <= 0) return 0;
   p.seq_chunk = n_pad;  // one chunk: the joint converts once
   p.vec16 = n_pad % 16 == 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return planes != nullptr ? dispatch<true>(p, k, n_planes, 0, 0, true, s)
-                           : dispatch<false>(p, k, n_planes, 0, 0, true, s);
+  const Launch op{p, k, static_cast<cudaStream_t>(stream)};
+  return planes != nullptr ? dispatch<true>(op, n_planes, 0, 0, true)
+                           : dispatch<false>(op, n_planes, 0, 0, true);
+}
+
+// The work item of the body that ld_general (ld_general_unit where `unit`)
+// launches for n_planes planes, weight mode (nlev, nflt) and the preplaned
+// entry where `pre`: *sa A sites x *sb B sites.  Host only, nothing runs on
+// the card; cudaErrorInvalidValue (1) for what the entries refuse.
+extern "C" int ld_general_block(int n_planes, int nlev, int nflt, int unit,
+                                int pre, int* sa, int* sb) {
+  const Block op{sa, sb};
+  return pre ? dispatch<true>(op, n_planes, nlev, nflt, unit != 0)
+             : dispatch<false>(op, n_planes, nlev, nflt, unit != 0);
 }

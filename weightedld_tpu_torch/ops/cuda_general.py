@@ -38,6 +38,9 @@ under names of their own (``ld_general_lo_int8``,
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from ..core.encode import N_ALLELES
@@ -45,6 +48,7 @@ from ..core.paircore import PairStats
 from .cuda_ld import (
     ALL_PLANES,
     DEFAULT_SEQ_CHUNK,
+    WEIGHT_MODES,
     _cells_plain,
     _a_operands,
     _check,
@@ -55,6 +59,7 @@ from .cuda_ld import (
     finalize_cells,
     float_pass_bits,
     launch_name,
+    weight_kind,
 )
 
 # Launch counts per kernel entry point, the float weight modes (lo_int8,
@@ -168,6 +173,61 @@ def tile_stats_general_plain(src, weights, tile_i, tile_j, emit, *,
     n_dd = jw[kk, dmin_a, ii, dmin_b, jj]
     return finalize_cells(n_mm, n_md, n_dm, n_dd, keep, tile_i, tile_j, emit,
                           t, n_sites)
+
+
+def work_block(n_planes: int, *, exact_weights: bool = False,
+               unit_weights: bool = False, wquant: str = "",
+               preplaned: bool = False) -> tuple[int, int]:
+    """``(kSA, kSB)``: the A sites and B sites of one work item of the body
+    that :func:`tile_stats_general` launches for ``n_planes`` planes in
+    this weight mode and entry, as the library names it
+    (``ld_general_block``, host only: nothing runs on the card)."""
+    from ._build import load_library
+
+    kind = weight_kind(exact_weights, unit_weights, wquant)
+    nlev = {"int": WEIGHT_MODES.get(wquant, (0, 0))[1], "lo": 1}.get(kind, 0)
+    nflt = {"exact": 1, "split": 2, "lo": 1}.get(kind, 0)
+    sa, sb = ctypes.c_int(), ctypes.c_int()
+    rc = load_library().ld_general_block(
+        n_planes, nlev, nflt, int(kind == "unit"), int(preplaned),
+        ctypes.byref(sa), ctypes.byref(sb))
+    if rc != 0:
+        raise ValueError(f"no general kernel for P={n_planes} in weight "
+                         f"kind {kind!r}")
+    return sa.value, sb.value
+
+
+def live_spans(tile_i, tile_j, emit, *, tile: int, n_sites: int,
+               block: tuple[int, int]) -> tuple[np.ndarray, np.ndarray]:
+    """``(lo, hi)``, each ``[K, ceil(T / kSA)]``: the live B blocks ``lo..hi``
+    of each A block of the general kernel's work items of ``block = (kSA,
+    kSB)`` sites (:func:`work_block`) on the host tile tables ``tile_i``,
+    ``tile_j``, ``emit``; ``lo > hi`` where none is.  A work item is live,
+    and runs, where its tile pair emits and it holds a pair ``gi < gj <
+    n_sites``: the closed form of ``live_span`` in ``csrc/ld_general.cu``."""
+    sa, sb = block
+    na, nb = -(-tile // sa), -(-tile // sb)
+    ti = np.asarray(tile_i, dtype=np.int64)[:, None]
+    bt = np.asarray(tile_j, dtype=np.int64)[:, None] * tile
+    a0 = ti * tile + np.arange(na, dtype=np.int64) * sa      # [K, na]
+    room = n_sites - bt                    # B sites below n_sites
+    hi = np.where(room > 0, np.minimum(nb - 1, (room - 1) // sb), -1)
+    need = a0 + 2 - bt                     # a0 < b1: (bj + 1) kSB >= need
+    lo = np.where(need <= 0, 0, -(-need // sb) - 1)
+    ok = ((np.asarray(emit)[:, None] != 0) & (a0 + 2 <= n_sites)
+          & (need <= tile))
+    return lo, np.where(ok, hi, -1)
+
+
+def work_items(tile_i, tile_j, emit, *, tile: int, n_sites: int,
+               block: tuple[int, int]) -> tuple[int, int]:
+    """``(items, live_items)`` of one general kernel launch on these host
+    tile tables: its work items of ``block`` sites, and the live ones it
+    runs (:func:`live_spans`)."""
+    lo, hi = live_spans(tile_i, tile_j, emit, tile=tile, n_sites=n_sites,
+                        block=block)
+    nb = -(-tile // block[1])
+    return lo.size * nb, int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def _launch(name: str, entry: str, codes, planes_src, weights, tile_i,

@@ -103,7 +103,8 @@ Spans (:func:`runtime.profiling.span`, recorded while a profiler records
 the process): ``upload.scan``, ``.pack``, ``.plan`` (the host's
 decisions, :func:`session_layout`), ``.copy``, ``.weights``, ``.planes``
 and ``.sync`` in the constructor;
-``batch.kernel`` (with its kernel class, and a general batch's planes)
+``batch.kernel`` (with its kernel class, and a general batch's planes
+and, on the card, the kernel's work items and its live ones)
 and ``batch.reduce`` (with device times),
 ``batch.wait``, ``batch.read`` (one per shard slice, with its compaction
 path) and ``batch.gather`` in the batch loops; ``prune.sweep``; and a
@@ -141,6 +142,8 @@ from ..ops.cuda_general import (
     build_planes_tiled,
     tile_stats_general,
     tile_stats_general_plain,
+    work_block,
+    work_items,
 )
 from ..ops.cuda_ld import (
     build_majmin_planes,
@@ -1129,11 +1132,21 @@ class LdSession:
             st = fn(*args, ti, tj, em, **kw)
         if sp:
             kern = self._locate(b)[0].kernel
-            tiles = int(self.batch_tiles_host(b, shard)[2].sum())
+            ti_h, tj_h, em_h = self.batch_tiles_host(b, shard)
+            tiles = int(em_h.sum())
             sp.set(kernel=kern, tile_pairs=tiles,
                    pairs=tiles * self.cfg.tile ** 2)
             if kern == "general":
                 sp.set(planes=len(self.planes))
+            if kern == "general" and st.keep.is_cuda:
+                # The kernel's work items, and the live ones it runs.
+                kw = self.general_kw
+                block = work_block(len(self.planes), **{
+                    k: kw[k] for k in ("exact_weights", "unit_weights",
+                                       "wquant", "preplaned")})
+                items, live = work_items(ti_h, tj_h, em_h, tile=kw["tile"],
+                                         n_sites=kw["n_sites"], block=block)
+                sp.set(items=items, live_items=live)
         self._mask_pairs(st.keep, ti, tj, shard)
         return st, ti, tj
 
